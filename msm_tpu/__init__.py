@@ -1,15 +1,15 @@
-"""msm_tpu — a TPU-native multi-scalar multiplication (MSM) framework.
+"""msm_tpu — a JAX multi-scalar multiplication (MSM) framework for GPUs.
 
-Built from scratch in JAX/XLA/Pallas with the capabilities of the
+Built from scratch in JAX/XLA with the capabilities of the
 ICME-Lab/msm-webgpu reference (Rust/WebGPU cuZK MSM over BN254 G1):
 
 - ``msm_tpu.params``      — curve/field/limb configuration (ShaderManager analogue)
 - ``msm_tpu.ops``         — batched limb bigint, Montgomery/Barrett field,
                             branch-free Jacobian curve kernels
 - ``msm_tpu.models``      — the cuZK pipeline and the naive Pippenger pipeline
-- ``msm_tpu.parallel``    — multi-chip sharded MSM (mesh + point-add collectives)
+- ``msm_tpu.parallel``    — multi-device sharded MSM (mesh + point-add collectives)
 - ``msm_tpu.oracle``      — CPU oracles (pure-python + C++), halo2curves stand-in
-- ``msm_tpu.utils``       — limb/byte serialization
+- ``msm_tpu.utils``       — limb/byte serialization, compile cache
 
 Public API mirrors the reference crate root (``src/lib.rs:20-137``):
 ``run_tpu_msm`` ~ ``run_webgpu_msm``; ``cpu_msm`` ~ ``cpu_msm``;
@@ -59,6 +59,12 @@ from msm_tpu.utils.limbs import (  # noqa: E402  (reference lib.rs:50-65)
 )
 
 
+def _cache():
+    from msm_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
+
+
 def plan(points, config=None, validate=False):
     """Prepare an MSM plan over a fixed point set (SRS serving workload):
     the point table is serialized + device-converted ONCE; each
@@ -68,17 +74,19 @@ def plan(points, config=None, validate=False):
     re-converts points on every call (``src/cuzk/msm.rs:75-417``)."""
     from msm_tpu.models.plan import MsmPlan
 
+    _cache()
     return MsmPlan(points, config=config, validate=validate)
 
 
 def plan_sharded(points, mesh=None, config=None, validate=False):
-    """Multi-chip serving plan: like ``plan`` but the cached point table is
-    a SHARDED jax.Array over a device mesh (defaults to all devices) — each
-    chip converts and holds only its own point shard at build time, and
-    every call runs the scalar-side pipeline compute-local per chip with
-    the KB-size all_gather + point-add-tree merge of the sharded path."""
+    """Multi-device serving plan: like ``plan`` but the cached point table
+    is a SHARDED jax.Array over a device mesh (defaults to all devices) —
+    each device converts and holds only its own point shard at build time,
+    and every call runs the scalar-side pipeline compute-local per device
+    with the KB-size all_gather + point-add-tree merge of the sharded path."""
     from msm_tpu.parallel.sharded_plan import ShardedMsmPlan
 
+    _cache()
     return ShardedMsmPlan(points, mesh=mesh, config=config, validate=validate)
 
 
@@ -87,13 +95,15 @@ def run_tpu_msm_batched(instances, config=DEFAULT_CONFIG):
     ``instances``: list of (points, scalars); returns oracle JPoints."""
     from msm_tpu.models.batched import compute_msm_batched
 
+    _cache()
     return compute_msm_batched(instances, config)
 
 
 def run_tpu_msm_sharded(points, scalars, config=DEFAULT_CONFIG, mesh=None):
-    """Multi-chip sharded MSM over a jax Mesh (defaults to all devices)."""
+    """Multi-device sharded MSM over a jax Mesh (defaults to all devices)."""
     from msm_tpu.parallel import compute_msm_sharded
 
+    _cache()
     return compute_msm_sharded(points, scalars, config, mesh=mesh)
 
 
@@ -110,7 +120,8 @@ def cpu_msm(points, scalars, curve=BN254):
 
 
 def run_tpu_msm(points, scalars, config=None, validate=False):
-    """End-to-end TPU MSM (the reference's ``run_webgpu_msm``, lib.rs:76-82).
+    """End-to-end device MSM (the reference's ``run_webgpu_msm``,
+    lib.rs:76-82).
 
     ``points``: affine (x, y) int pairs; ``scalars``: ints.
     Returns the result as an affine (x, y) int pair (or None for identity).
@@ -120,10 +131,11 @@ def run_tpu_msm(points, scalars, config=None, validate=False):
     violation — the guard the reference gets statically from halo2curves'
     typed points (``src/lib.rs:20-42``). Off by default: it costs ~1 us
     per point on-curve checking, plus one vectorized device [r]P ladder
-    for cofactor>1 curves (~seconds at 2^18), and trusted callers skip it.
+    for cofactor>1 curves, and trusted callers skip it.
     """
     from msm_tpu.models.cuzk import compute_msm
 
+    _cache()
     return compute_msm(points, scalars, config=config, validate=validate)
 
 

@@ -62,8 +62,8 @@ def compute_msm_batched(
         xs.append(x)
         ys.append(y)
         ss.append(s)
-    xb, yb, sb = common.to_device_blocked(
-        np.stack(xs), np.stack(ys), np.stack(ss)
+    xb, yb, sb = (
+        jax.device_put(np.stack(a)) for a in (xs, ys, ss)
     )
     geom = geometry or pick_geometry(xb.shape[1], config.chunk_size)
     ws = np.asarray(batched_window_sums(xb, yb, sb, config, geom))

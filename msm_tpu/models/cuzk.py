@@ -1,16 +1,17 @@
-"""The cuZK MSM pipeline on TPU — the production model.
+"""The cuZK MSM pipeline — the production model.
 
-TPU-native re-design of the reference's 4-stage GPU pipeline
-(``src/cuzk/msm.rs:75-417``):
+Re-design of the reference's 4-stage GPU pipeline
+(``src/cuzk/msm.rs:75-417``) as one XLA program:
 
   stage 1  convert + decompose  -> vectorized limb extraction + to-Montgomery
                                    + signed window recode (ops/decompose.py)
   stage 2  sparse transpose     -> lax.sort_key_val by bucket key
   stage 3  SMVP                 -> blocked prefix point-scan + boundary
                                    prefix-differences (ops/scan.py)
-  stage 4  BPR                  -> lane-parallel two-phase running-sum
-                                   reduction (ops/scan.py)
-  finish   per-subtask Horner   -> host, exact ints (like msm.rs:391-416)
+  stage 4  BPR                  -> telescoped window sums straight from
+                                   the boundary prefixes (ops/scan.py)
+  finish   per-subtask Horner   -> device ladder; the host maps the one
+                                   resulting point to affine
 
 Everything between the u16-word inputs and the [S, 3, L] window-sum output is
 ONE jitted XLA program per (config, n) — jax.jit plays the role the WGSL
@@ -28,25 +29,22 @@ import numpy as np
 
 from msm_tpu.models import common
 from msm_tpu.models.geometry import MsmGeometry, pick_geometry
-from msm_tpu.ops.curve import CurveCtx, get_curve_ctx
+from msm_tpu.ops.curve import CurveCtx, PointBatch, get_curve_ctx
 from msm_tpu.ops.decompose import decompose_signed
 from msm_tpu.ops.scan import bucket_boundary_prefix, window_sum_from_pe
 from msm_tpu.oracle.pyecc import JPoint
 from msm_tpu.params import DEFAULT_CONFIG, MsmConfig
 
 
-#: slice size for large MSMs: the sorted-order gather runs ~3.4x faster per
-#: row when the packed coordinate table stays under ~128 MB (VMEM-resident
-#: on v5e: 9.7 vs 33 ms per 2^20 rows), and window sums are linear in the
-#: points, so n > 2^20 runs as 2^20-point slices whose Montgomery window
-#: sums are point-added before export (2^22: 3.17 -> ~2.2 s).
+#: slice size for large MSMs: window sums are linear in the points, so
+#: n > SLICE runs as SLICE-point slices whose Montgomery window sums are
+#: point-added before export. Not yet tuned on the H100.
 SLICE = 1 << 20
 
-#: device program cap: above 2^22 the [n, 16] u16 inputs' lane-padded HBM
-#: residency (512 B/point/array) outgrows the chip, so compute_msm_jpoint
-#: runs host-level chunks whose window sums merge with ~S exact point adds
-#: each (window sums are linear in the points). Module-level so tests can
-#: shrink it to exercise the chunked branch at small n.
+#: device program cap: above it compute_msm_jpoint runs host-level chunks
+#: whose window sums merge with ~S exact point adds each. Module-level so
+#: tests can shrink it to exercise the chunked branch at small n. Not yet
+#: tuned on the H100.
 CHUNK_MAX = 1 << 22
 
 
@@ -60,28 +58,25 @@ def _window_sums_mont(
     """One slice: u16-word inputs [n, 16] -> Montgomery window sums
     [S, 3, L] (stacked PointBatch coordinates)."""
     ec = get_curve_ctx(cfg)
-    pts, packed = common.prepare_points(ec, x_u16, y_u16, geom.num_rows)
-    return window_sums_from_table(pts, packed, s_u16, cfg, geom)
+    table = common.prepare_points(ec, x_u16, y_u16)
+    return window_sums_from_table(table, s_u16, cfg, geom)
 
 
 def window_sums_from_table(
-    pts,
-    packed,
+    table: jax.Array,
     s_u16: jax.Array,
     cfg: MsmConfig,
     geom: MsmGeometry,
 ) -> jax.Array:
-    """Scalar-side pipeline body (stages 1b-4) with the point table already
-    prepared: signed decompose + per-subtask boundary scans + telescoped
-    reduction -> Montgomery window sums [S, 3, L]. The table is either a
-    ``packed`` fused-convert array (TPU path) or an unpacked Montgomery
-    ``pts`` PointBatch (XLA fallback) — exactly ``prepare_points``'s
-    output. Split out so the serving plan API (models/plan.py) can cache
-    the table across many scalar sets."""
+    """Scalar-side pipeline body (stages 1b-4) with the packed point table
+    already prepared (``common.prepare_points``): signed decompose +
+    per-subtask boundary scans + telescoped reduction -> Montgomery window
+    sums [S, 3, L]. Split out so the serving plan API (models/plan.py) can
+    cache the table across many scalar sets."""
     ec = get_curve_ctx(cfg)
     if cfg.glv:
-        # GLV: 2n points (P, phi(P)), half-length scalars -> half the
-        # subtasks; keys/signs columns n..2n-1 address the phi table half
+        # GLV: 2n logical points (P, phi(P)), half-length scalars -> half
+        # the subtasks; keys/signs columns n..2n-1 address the phi column
         from msm_tpu.ops.glv import decompose_signed_glv
 
         keys, signs = decompose_signed_glv(
@@ -95,16 +90,13 @@ def window_sums_from_table(
     def subtask(args):
         k, s = args
         pe = bucket_boundary_prefix(
-            ec, pts, k, cfg.num_buckets, geom.num_rows, signs=s, affine=True,
-            packed=packed,
+            ec, table, k, cfg.num_buckets, geom.num_rows, signs=s
         )
         return jnp.stack([pe.x, pe.y, pe.z])
 
     bk = jax.lax.map(
         subtask, (keys, signs), batch_size=common.subtask_batch(geom, cfg)
     )  # [S, 3, NB, L] Montgomery boundary prefixes
-    from msm_tpu.ops.curve import PointBatch
-
     # telescoped bucket reduction over ALL subtasks at once: W is computed
     # straight from the boundary prefixes (window_sum_from_pe), so neither
     # the per-bucket differences nor the two-phase BPR run in production
@@ -122,33 +114,35 @@ def cuzk_msm_point(
     geom: MsmGeometry,
 ) -> jax.Array:
     """Full device MSM: u16-word inputs -> ONE standard-form projective
-    point [3, L] (window sums + the on-device Horner ladder kernel; the
-    host only maps the single homogeneous triple to affine — one modular
-    inversion instead of the ~15-30 ms python-int Horner behind the relay
-    fetch). Requires the Pallas path (callers fall back to
-    cuzk_window_sums + the host Horner otherwise, matching the
-    reference's host finish at msm.rs:409-416)."""
+    point [3, L] (window sums + the device Horner ladder); the host only
+    maps the single homogeneous triple to affine."""
     ws = _window_sums_all(x_u16, y_u16, s_u16, cfg, geom)
     return msm_point_from_ws(ws, cfg)
+
+
+def horner_ladder(ec: CurveCtx, ws: PointBatch, chunk: int) -> PointBatch:
+    """Horner over per-subtask window sums [S] on the device:
+    acc = W_{S-1}; acc = 2^chunk * acc + W_i for i = S-2 .. 0 — the device
+    twin of ``common.horner_window_sums`` (msm.rs:409-416)."""
+    S = ws.x.shape[0]
+
+    def body(i, acc):
+        acc = jax.lax.fori_loop(0, chunk, lambda _, a: ec.double(a), acc)
+        j = S - 2 - i
+        return ec.add(acc, PointBatch(ws.x[j], ws.y[j], ws.z[j]))
+
+    top = PointBatch(ws.x[S - 1], ws.y[S - 1], ws.z[S - 1])
+    return jax.lax.fori_loop(0, S - 1, body, top)
 
 
 def msm_point_from_ws(ws: jax.Array, cfg: MsmConfig) -> jax.Array:
     """Montgomery window sums [S, 3, L] -> ONE standard-form projective
     point [3, L] (device Horner ladder + from-Montgomery export)."""
-    from msm_tpu.ops.curve import (
-        PointBatch, _pallas_enabled, pallas_interpret,
-    )
-    from msm_tpu.ops.pallas_prefix import make_horner_ladder
-
     ec = get_curve_ctx(cfg)
-    S = ws.shape[0]
-    # interpret also when Pallas is off entirely (e.g. an env-pinned CPU
-    # bench run) — the ladder has no XLA fallback and must stay runnable
-    interp = pallas_interpret() or not _pallas_enabled()
-    hx, hy, hz = make_horner_ladder(
-        cfg, S, cfg.chunk_size, interpret=interp
-    )(ws[:, 0].T, ws[:, 1].T, ws[:, 2].T)
-    acc = PointBatch(hx[None, :], hy[None, :], hz[None, :])
+    acc = horner_ladder(
+        ec, PointBatch(ws[:, 0], ws[:, 1], ws[:, 2]), cfg.chunk_size
+    )
+    acc = PointBatch(acc.x[None], acc.y[None], acc.z[None])
     return common.export_points_std(ec, acc)[0]
 
 
@@ -164,11 +158,9 @@ def cuzk_window_sums(
 ) -> jax.Array:
     """Device pipeline: u16-word inputs [n, 16] -> window sums [S, 3, L]
     (standard-form projective limbs). n > SLICE runs the pipeline per
-    2^20-point slice under one lax.map (buffers are reused across slices)
+    SLICE-point slice under one lax.map (buffers are reused across slices)
     and merges the slice window sums with point adds; ``geom`` applies to
     the per-slice pipeline geometry in that case."""
-    from msm_tpu.ops.curve import PointBatch
-
     ec = get_curve_ctx(cfg)
     ws = _window_sums_all(x_u16, y_u16, s_u16, cfg, geom)
     w = PointBatch(ws[:, 0], ws[:, 1], ws[:, 2])
@@ -184,8 +176,6 @@ def _window_sums_all(
 ) -> jax.Array:
     """Shared body of cuzk_window_sums/cuzk_msm_point: Montgomery window
     sums [S, 3, L] with the n > SLICE slice-and-merge handling."""
-    from msm_tpu.ops.curve import PointBatch
-
     ec = get_curve_ctx(cfg)
     n = x_u16.shape[0]
     if n <= SLICE:
@@ -193,9 +183,7 @@ def _window_sums_all(
     else:
         assert n % SLICE == 0, (n, SLICE)
         k = n // SLICE
-        from msm_tpu.models.geometry import pick_geometry
-
-        gs = pick_geometry(SLICE, cfg.chunk_size, compress=cfg.compress)
+        gs = pick_geometry(SLICE, cfg.chunk_size)
 
         def body(args):
             xs, ys, ss = args
@@ -259,32 +247,24 @@ def compute_msm_jpoint(
     )
     n = x_u16.shape[0]
     if n <= CHUNK_MAX:
-        from msm_tpu.ops.curve import _pallas_enabled
-
-        geom = geometry or pick_geometry(
-            n, config.chunk_size, compress=config.compress
+        geom = geometry or pick_geometry(n, config.chunk_size)
+        pt = cuzk_msm_point(
+            jax.device_put(x_u16), jax.device_put(y_u16),
+            jax.device_put(s_u16), config, geom,
         )
-        xd, yd, sd = common.to_device_blocked(x_u16, y_u16, s_u16)
-        if _pallas_enabled():
-            pt = cuzk_msm_point(xd, yd, sd, config, geom)
-            return common.std_point_to_jpoint(np.asarray(pt), config)
-        # XLA-only path (CPU parity): host Horner, like the reference
-        ws = cuzk_window_sums(xd, yd, sd, config, geom)
-        return common.window_sums_to_result(np.asarray(ws), config)
+        return common.std_point_to_jpoint(np.asarray(pt), config)
     from msm_tpu.oracle.pyecc import Curve
 
     cv = Curve(config.curve)
-    geom = geometry or pick_geometry(
-        CHUNK_MAX, config.chunk_size, compress=config.compress
-    )
+    geom = geometry or pick_geometry(CHUNK_MAX, config.chunk_size)
     acc: list | None = None
     for lo in range(0, n, CHUNK_MAX):
-        xd, yd, sd = common.to_device_blocked(
-            x_u16[lo : lo + CHUNK_MAX],
-            y_u16[lo : lo + CHUNK_MAX],
-            s_u16[lo : lo + CHUNK_MAX],
+        ws = cuzk_window_sums(
+            jax.device_put(x_u16[lo : lo + CHUNK_MAX]),
+            jax.device_put(y_u16[lo : lo + CHUNK_MAX]),
+            jax.device_put(s_u16[lo : lo + CHUNK_MAX]),
+            config, geom,
         )
-        ws = cuzk_window_sums(xd, yd, sd, config, geom)
         wj = common.window_sums_to_jpoints(np.asarray(ws), config)
         acc = wj if acc is None else [cv.add(a, b) for a, b in zip(acc, wj)]
     return common.horner_window_sums(acc, config)

@@ -1,16 +1,16 @@
 """Launch-geometry heuristics: input size -> scan/reduction blocking.
 
-The TPU analogue of the reference's static dispatch tables mapping input size
+The analogue of the reference's static dispatch tables mapping input size
 to (workgroup_size, x/y/z workgroup counts) per stage
 (``src/cuzk/msm.rs:100-122`` decompose, ``:191-213`` SMVP, ``:266-271`` BPR).
 Here the tunables are:
 
-- ``num_rows``  — lane width R of the blocked prefix scan (more lanes = fatter
-  VPU batches and a shorter sequential chain; the scan runs n/R steps)
+- ``num_rows``  — lane width R of the blocked prefix scan (more lanes = wider
+  batches and a shorter sequential chain; the scan runs n/R steps)
 - ``bpr_threads`` — lane width T of the blocked bucket reduction (block size
   Bl = (num_buckets-1)/T must be a power of two)
 - ``subtask_batch`` — how many subtasks process concurrently (bounds peak
-  HBM working set, like the reference's 4-subtasks-per-SMVP-dispatch chunking
+  device-memory working set, like the reference's 4-subtasks-per-SMVP-dispatch chunking
   at msm.rs:213)
 """
 
@@ -26,29 +26,21 @@ class MsmGeometry:
     subtask_batch: int
 
 
-def pick_geometry(
-    n: int, chunk_size: int, compress: bool = False
-) -> MsmGeometry:
-    """n must be a power of two (the host pads, like msm.rs:48-61)."""
+def pick_geometry(n: int, chunk_size: int) -> MsmGeometry:
+    """n must be a power of two (the host pads, like msm.rs:48-61).
+    Not yet tuned on the H100: the constants below are carried over from
+    the first hardware target."""
     assert n & (n - 1) == 0 and n > 0
-    # scan lanes: wide enough to fill the VPU tiles, small enough that the
-    # row-offset prefix machinery (~2R projective adds + its dispatch chain)
-    # stays minor next to the n-madd row scan (R sweep at 2^20 on v5e:
-    # 65536=72.9ms, 32768=69.9, 16384=68.5, 8192=70.0 per subtask)
+    # scan lanes: wide enough to fill the device, small enough that the
+    # row-offset prefix machinery (~2R projective adds) stays minor next
+    # to the n-madd row scan
     num_rows = max(1, min(n // 8, 1 << 14))
-    if compress:
-        # pair compression runs ONE Fermat inversion (~354 muls) per lane
-        # chain: R=1024 keeps that at ~4% of the chain's ~(n/R)*9.25 muls
-        # at 2^20 while still filling a full (8,128) VPU tile of lanes
-        num_rows = max(1, min(n // 8, 1 << 10))
     # bucket-reduction lanes (parity/naive paths only — production uses the
     # telescoped window_sum_from_pe): body = 2^(c-1) buckets in power-of-two
-    # blocks; T=512 measured best (x16 batched: 512=54ms vs 2048=73ms)
+    # blocks
     body = 1 << (chunk_size - 1)
     bpr_threads = max(1, min(body // 16, 1 << 9))
-    # measured on v5e (fused kernels, batched bucket reduction): 4 concurrent
-    # subtasks win at every size (2^20: bs1=887ms bs4=820; 2^22: bs1=3643ms
-    # bs4=3172 — fits since the copy-free [C, L, R] layout removed the 6.4x
-    # lane padding from row_prefix). HBM governor: ~240n bytes/subtask.
+    # concurrent subtasks per lax.map step (peak working set ~240n bytes
+    # per subtask)
     subtask_batch = 4
     return MsmGeometry(num_rows, bpr_threads, subtask_batch)

@@ -44,14 +44,12 @@ def naive_window_sums(
 ) -> jax.Array:
     ec = get_curve_ctx(cfg)
     assert not cfg.glv, "GLV runs the cuZK pipeline (models/cuzk.py)"
-    pts, packed = common.prepare_points(ec, x_u16, y_u16, geom.num_rows)
+    table = common.prepare_points(ec, x_u16, y_u16)
     keys = extract_windows(s_u16, cfg.chunk_size, cfg.num_subtasks)  # [S, n]
     num_buckets = 1 << cfg.chunk_size
 
     def subtask(k):
-        buckets = bucket_accumulate(
-            ec, pts, k, num_buckets, geom.num_rows, affine=True, packed=packed
-        )
+        buckets = bucket_accumulate(ec, table, k, num_buckets, geom.num_rows)
         w = bucket_reduce_running(ec, buckets)
         return jnp.stack([w.x, w.y, w.z])
 

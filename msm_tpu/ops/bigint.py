@@ -1,6 +1,6 @@
 """Batched big-integer limb arithmetic in JAX (int32 lanes).
 
-TPU-native analogue of the reference's WGSL bigint library
+Vectorized analogue of the reference's WGSL bigint library
 (``src/cuzk/wgsl/bigint/bigint.template.wgsl:1-63``): fixed-width
 little-endian limbs, reduced radix (word_size <= 13 bits) so that limb
 products and column accumulations fit in 32-bit lanes without per-step
@@ -87,8 +87,8 @@ def carry_propagate(x: jax.Array, word_size: int) -> tuple[jax.Array, jax.Array]
 
     x: int32 [..., K] with nonnegative limb values (possibly > 2^w).
     Returns (limbs [..., K] all < 2^w, carry_out [...]).
-    Sequential carry chain via lax.scan over the limb axis (the GPU does the
-    same serially per element; here the batch axes provide the parallelism).
+    Sequential carry chain via a trace-time-unrolled lax.scan over the limb
+    axis (the batch axes provide the parallelism).
     """
     xm = jnp.moveaxis(x, -1, 0)  # [K, ...]
 
@@ -96,7 +96,9 @@ def carry_propagate(x: jax.Array, word_size: int) -> tuple[jax.Array, jax.Array]
         v = limb + carry
         return v >> word_size, v & ((1 << word_size) - 1)
 
-    carry_out, limbs = jax.lax.scan(step, jnp.zeros_like(xm[0]), xm)
+    carry_out, limbs = jax.lax.scan(
+        step, jnp.zeros_like(xm[0]), xm, unroll=True
+    )
     return jnp.moveaxis(limbs, 0, -1), carry_out
 
 
@@ -122,7 +124,9 @@ def sub(a: jax.Array, b: jax.Array, word_size: int) -> tuple[jax.Array, jax.Arra
         br = (d < 0).astype(jnp.int32)
         return br, d + br * base
 
-    borrow_out, limbs = jax.lax.scan(step, jnp.zeros_like(am[0]), (am, bm))
+    borrow_out, limbs = jax.lax.scan(
+        step, jnp.zeros_like(am[0]), (am, bm), unroll=True
+    )
     return jnp.moveaxis(limbs, 0, -1), borrow_out
 
 

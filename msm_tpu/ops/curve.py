@@ -1,4 +1,4 @@
-"""Batched elliptic-curve group ops on limb tensors (branch-free, TPU-first).
+"""Batched elliptic-curve group ops on limb tensors (branch-free).
 
 Role: the reference's WGSL EC library (``src/cuzk/wgsl/curve/ec.template.wgsl``)
 — point add / double / negate / double_and_add over BN254 G1 — re-designed
@@ -8,7 +8,7 @@ for XLA:
   2016, Algorithms 7 & 9 for a=0 short-Weierstrass curves) on homogeneous
   (X:Y:Z) coordinates with identity (0:1:0). Complete means NO exceptional
   cases: identity operands, P+P, and P+(-P) all flow through the same
-  arithmetic — the TPU-native replacement for the reference's branchy
+  arithmetic — the vector-friendly replacement for the reference's branchy
   Jacobian add (``ec.template.wgsl:36-86``), whose identity/doubling branches
   would cost extra selects and a merged doubling path on a vector machine.
   The identity convention (0,1,0) matches ``ec.template.wgsl:4``.
@@ -35,38 +35,6 @@ import numpy as np
 from msm_tpu.ops.field import FieldCtx
 from msm_tpu.utils.limbs import int_to_limbs
 from msm_tpu.params import MsmConfig
-
-#: Pallas fused point-add dispatch: "auto" uses the kernel when tracing for
-#: TPU, "on"/"off" force it (tests use "off" on CPU, "on"+interpret for
-#: kernel-parity tests), "interpret" forces it with EVERY kernel in
-#: interpreter mode — the CPU-runnable gate for the composed production
-#: pipeline (fused convert -> gather -> scan -> offsets -> telescoped
-#: reduction under lax.map batching), a known miscompile surface (see
-#: models/common.subtask_batch). The kernel output is a
-#: different-but-congruent balanced limb encoding, so value semantics are
-#: unchanged.
-_PALLAS_MODE = "auto"
-
-
-def set_pallas_mode(mode: str) -> None:
-    global _PALLAS_MODE
-    assert mode in ("auto", "on", "off", "interpret"), mode
-    _PALLAS_MODE = mode
-
-
-def _pallas_enabled() -> bool:
-    if _PALLAS_MODE in ("on", "interpret"):
-        return True
-    if _PALLAS_MODE == "off":
-        return False
-    return jax.default_backend() == "tpu"
-
-
-def pallas_interpret() -> bool:
-    """True when every Pallas call site must pass interpret=True (the
-    'interpret' mode above). Kernel factories take this as their
-    ``interpret`` argument so the whole pipeline runs on CPU."""
-    return _PALLAS_MODE == "interpret"
 
 
 class PointBatch(NamedTuple):
@@ -129,53 +97,7 @@ class CurveCtx:
 
     def add(self, p: PointBatch, q: PointBatch) -> PointBatch:
         """Complete projective addition — handles identity, doubling and
-        inverse operands with no branches (RCB16 Algorithm 7).
-
-        On TPU, batches dispatch to the fused Pallas kernel
-        (ops/pallas_curve.py) — one HBM round-trip instead of one per
-        mont_mul scan step (measured 5.3x per add on v5e)."""
-        if _pallas_enabled() and p.batch_shape == q.batch_shape:
-            out = self._add_pallas(p, q)
-            if out is not None:
-                return out
-        return self._add_xla(p, q)
-
-    def _add_pallas(self, p: PointBatch, q: PointBatch) -> PointBatch | None:
-        """Fused-kernel path: flatten batch axes, pad to the lane tile, run,
-        un-pad. Returns None when the batch is too small to be worth it."""
-        from msm_tpu.ops import pallas_curve
-
-        batch = p.batch_shape
-        B = 1
-        for d in batch:
-            B *= d
-        tile = pallas_curve.DEFAULT_TILE
-        if B < tile // 2:
-            return None
-        Bp = -(-B // tile) * tile
-        L = self.f.L
-
-        def prep(a):
-            a = a.reshape(B, L)
-            if Bp != B:
-                a = jnp.concatenate(
-                    [a, jnp.zeros((Bp - B, L), jnp.int32)], axis=0
-                )
-            return a
-
-        kern = pallas_curve.make_point_add(
-            self.cfg, tile=tile, interpret=pallas_interpret()
-        )
-        ox, oy, oz = kern(
-            prep(p.x), prep(p.y), prep(p.z), prep(q.x), prep(q.y), prep(q.z)
-        )
-        return PointBatch(
-            ox[:B].reshape(batch + (L,)),
-            oy[:B].reshape(batch + (L,)),
-            oz[:B].reshape(batch + (L,)),
-        )
-
-    def _add_xla(self, p: PointBatch, q: PointBatch) -> PointBatch:
+        inverse operands with no branches (RCB16 Algorithm 7)."""
         f = self.f
         x1, y1, z1 = p
         x2, y2, z2 = q
@@ -195,6 +117,32 @@ class CurveCtx:
         y3 = self._mul_b3(t5)
         x3 = f.sub(f.mont_mul(t3, t1m), f.mont_mul(t4, y3))
         y3 = f.add(f.mont_mul(t1m, z3), f.mont_mul(y3, t0_3))
+        z3 = f.add(f.mont_mul(z3, t4), f.mont_mul(t0_3, t3))
+        return PointBatch(x3, y3, z3)
+
+    def add_affine(
+        self, p: PointBatch, x2: jax.Array, y2: jax.Array
+    ) -> PointBatch:
+        """Mixed addition P + (x2, y2) with an affine, finite second operand
+        (RCB16 Algorithm 8, a=0): 11 products + 2 b3-products instead of
+        12 + 2. Complete for any P (identity included) as long as the
+        affine point is a real curve point — true of every sorted input
+        point, since padding uses the generator."""
+        f = self.f
+        x1, y1, z1 = p
+        t0 = f.mont_mul(x1, x2)
+        t1 = f.mont_mul(y1, y2)
+        t3 = f.mont_mul(f.add(x2, y2), f.add(x1, y1))
+        t3 = f.sub(t3, f.add(t0, t1))  # x1y2 + x2y1
+        t4 = f.add(f.mont_mul(y2, z1), y1)  # y1 + y2z1
+        y3 = f.add(f.mont_mul(x2, z1), x1)  # x1 + x2z1
+        t0_3 = f.add(f.double(t0), t0)  # 3*x1x2
+        t2 = self._mul_b3(z1)
+        z3 = f.add(t1, t2)
+        t1 = f.sub(t1, t2)
+        y3 = self._mul_b3(y3)
+        x3 = f.sub(f.mont_mul(t3, t1), f.mont_mul(t4, y3))
+        y3 = f.add(f.mont_mul(y3, t0_3), f.mont_mul(t1, z3))
         z3 = f.add(f.mont_mul(z3, t4), f.mont_mul(t0_3, t3))
         return PointBatch(x3, y3, z3)
 
@@ -250,10 +198,9 @@ class CurveCtx:
         """p * k for ONE static python-int scalar of any width, applied to
         the whole batch — MSB-first double-and-add under lax.scan with the
         bit pattern as the scanned operand (the full-width ``scalar_mul``
-        of ec.template.wgsl:88-102, vectorized and branch-free). The adds
-        ride the fused Pallas kernel on TPU, so k of ~255 bits over a
-        2^18-point batch is ~2 x order_bits point-ops at the measured scan
-        rate (~seconds), vs ~minutes/point for a host ladder."""
+        of ec.template.wgsl:88-102, vectorized and branch-free): ~2 x
+        order_bits batched point-ops over the whole batch, vs ~minutes/point
+        for a host ladder."""
         if k <= 0:
             assert k == 0, "negative static scalars unsupported"
             return self.identity(p.batch_shape)

@@ -1,13 +1,13 @@
-"""Sort/scan-based bucket machinery — the TPU-native replacement for the
-reference's atomic sparse transpose + per-bucket CSC walks.
+"""Sort/scan-based bucket machinery — the replacement for the reference's
+atomic sparse transpose + per-bucket CSC walks.
 
 Reference stages replaced here:
 - Stage-2 CSR->CSC transpose (``transpose.template.wgsl:32-75``, serial with
-  atomics): XLA has no atomics; a global ``lax.sort_key_val`` by bucket key
-  produces the same grouped-by-bucket ordering deterministically.
+  atomics): a global ``lax.sort`` by bucket key produces the same
+  grouped-by-bucket ordering deterministically.
 - Stage-3 SMVP per-bucket segment walk (``smvp.template.wgsl:31-117``, one
   thread per bucket, dynamic-length loops): replaced by ONE blocked inclusive
-  prefix scan of point-adds over the sorted array (fixed trip count, fat
+  prefix scan of point-adds over the sorted array (fixed trip count, wide
   vector lanes) + prefix-difference extraction at bucket boundaries:
       bucket_b = prefix[end_b - 1] + neg(prefix[end_{b-1} - 1])
   Empty buckets come out as P + (-P) = identity *automatically* because the
@@ -29,12 +29,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from msm_tpu.ops.curve import (
-    CurveCtx,
-    PointBatch,
-    pallas_interpret,
-    point_where,
-)
+from msm_tpu.ops.curve import CurveCtx, PointBatch, point_where
+from msm_tpu.ops.packing import coord_words, unpack_coords
 
 
 def gather_points(pts: PointBatch, idx: jax.Array) -> PointBatch:
@@ -82,8 +78,8 @@ def tree_reduce_points(ec: CurveCtx, pts: PointBatch) -> PointBatch:
     """Sum a [m, ...] batch of points along axis 0. Large flat batches
     first fold blockwise (m adds via one lax.scan over 4096 lanes) so the
     Hillis-Steele ladder only runs at 4096 — m*log(m) -> m + 4096*12
-    adds, which is what makes the XLA-fallback window tail tractable on
-    CPU at production bucket counts (32768 buckets: 491k -> 81k adds).
+    adds, which keeps the window tail tractable at production bucket
+    counts (32768 buckets: 491k -> 81k adds).
     Point addition is exact and associative, so any association yields
     the same group element."""
     m = pts.x.shape[0]
@@ -158,65 +154,40 @@ def blocked_prefix_scan(
 
 def prefix_at(
     ec: CurveCtx,
-    row_prefix,
+    row_prefix: PointBatch,
     offsets: PointBatch,
     idx: jax.Array,
-    packed3: bool = False,
 ) -> PointBatch:
-    """Gather inclusive prefix values at positions ``idx`` (int32 [m]);
-    idx == -1 yields the identity (empty prefix). ``packed3=True`` means
-    row_prefix is the scan kernel's [C, R, P] boundary layout (x||y||z
-    limbs contiguous per row — ONE gathered row per position; int16 limb
-    pairs when pallas_scan.pe_pack16 holds); otherwise a PointBatch
-    stored [C, R, L]."""
-    C = (row_prefix.shape if packed3 else row_prefix.x.shape)[0]
+    """Gather inclusive prefix values at positions ``idx`` (int32 [m]) from
+    a blocked scan's ``row_prefix`` [C, R, L] and lane ``offsets`` [R]:
+    prefix(i) = offsets[i // C] + row_prefix[i % C, i // C]; idx == -1
+    yields the identity (empty prefix)."""
+    C = row_prefix.x.shape[0]
     valid = idx >= 0
     i = jnp.maximum(idx, 0)
     r = i // C
     c = i % C
-    if packed3:
-        from msm_tpu.ops.pallas_scan import unpack_pe_rows
-
-        L = ec.cfg.num_words
-        row = row_prefix[c, r]  # [m, P] — one fast row gather
-        row = unpack_pe_rows(row, ec.cfg)  # [m, 3L]
-        rp = PointBatch(
-            row[..., :L], row[..., L : 2 * L], row[..., 2 * L :]
-        )
-    else:
-        rp = PointBatch(
-            row_prefix.x[c, r], row_prefix.y[c, r], row_prefix.z[c, r]
-        )
-    off = gather_points(offsets, r)
-    out = ec.add(off, rp)
+    rp = PointBatch(row_prefix.x[c, r], row_prefix.y[c, r], row_prefix.z[c, r])
+    out = ec.add(gather_points(offsets, r), rp)
     return point_where(valid, out, ec.identity(idx.shape))
 
 
 def bucket_accumulate(
     ec: CurveCtx,
-    pts: PointBatch,
+    table: jax.Array,
     keys: jax.Array,
     num_buckets: int,
     num_rows: int,
     signs: jax.Array | None = None,
-    affine: bool = False,
-    packed: jax.Array | None = None,
 ) -> PointBatch:
     """Per-bucket signed point sums for one subtask (cuZK stages 2+3).
 
-    pts: [n] points (Montgomery projective); keys: int32 [n] in
-    [0, num_buckets); signs: optional bool [n] (True -> subtract the point).
-    ``affine=True`` asserts every z == 1 (Montgomery R) — true for freshly
-    converted input points — enabling the fused mixed-add scan kernel on
-    TPU (z never gathered, 13 instead of 15 muls per scan step).
-    ``packed``: optional pre-packed [n, 2D] dense canonical coordinate
-    array (pallas_scan.pack_coords) — pass it when calling per-subtask so the
-    packing cost is paid once per MSM, not once per subtask.
-    Returns buckets [num_buckets] with bucket_b = sum_{keys==b} ±P_i.
+    table: the packed point table (``common.prepare_points``); keys: int32
+    [n] in [0, num_buckets); signs: optional bool [n] (True -> subtract the
+    point). Returns buckets [num_buckets] with bucket_b = sum_{keys==b} ±P_i.
     """
     pe = bucket_boundary_prefix(
-        ec, pts, keys, num_buckets, num_rows, signs=signs, affine=affine,
-        packed=packed,
+        ec, table, keys, num_buckets, num_rows, signs=signs
     )
     # previous bucket's end-prefix (identity for bucket 0)
     ident1 = ec.identity((1,))
@@ -230,53 +201,43 @@ def bucket_accumulate(
 
 def bucket_boundary_prefix(
     ec: CurveCtx,
-    pts: PointBatch,
+    table: jax.Array,
     keys: jax.Array,
     num_buckets: int,
     num_rows: int,
     signs: jax.Array | None = None,
-    affine: bool = False,
-    packed: jax.Array | None = None,
 ) -> PointBatch:
     """The sorted-prefix values at bucket end boundaries: pe[b] is the
     inclusive point-prefix over all elements with key <= b, so bucket_b =
     pe[b] - pe[b-1]. The production pipeline consumes pe directly via the
     telescoped reduction (window_sum_from_pe) and never materializes the
-    bucket differences."""
+    bucket differences.
+
+    ``table`` is the packed point table [rows, W]: W = 2D (x, y) or, under
+    GLV, 3D (x, beta*x, y) with keys over 2*rows logical columns (columns
+    >= rows are the phi copies)."""
     n = keys.shape[0]
-    # ride the sign bit inside the sort payload: gathers are per-row
-    # latency-bound on TPU (~8 ms for 2^20 rows regardless of width), so a
-    # separate signs[perm] gather would cost as much as the coordinate
-    # gather itself
+    # the sign bit rides inside the sort payload, so one permutation
+    # gather serves both the coordinates and the signs
     sbit = max((n - 1).bit_length(), 1)
     payload = jnp.arange(n, dtype=jnp.int32)
     if signs is not None:
         assert sbit + 1 < 32, n
         payload = payload | (signs.astype(jnp.int32) << sbit)
-    # unstable sort: bucket sums are order-free within a key, and
-    # is_stable=False is measurably cheaper on TPU (16 -> 10 ms per 4x2^20)
+    # unstable sort: bucket sums are order-free within a key
     sorted_keys, pv = jax.lax.sort(
         (keys, payload), is_stable=False, num_keys=1
     )
-    ends = _counts_leq(keys, num_buckets)
-    R = num_rows
-    if (
-        ec.cfg.compress
-        and affine
-        and packed is not None
-        and fused_scan_available(n, R)
-        and (n // R) % 2 == 0
-    ):
-        return _boundary_prefix_compressed(
-            ec, packed, pv, sbit if signs is not None else None, R, ends
-        )
-    row_prefix, offsets, packed3 = _sorted_prefix(
-        ec, pts, pv, sbit if signs is not None else None, num_rows,
-        affine=affine, packed=packed,
+    ends = bucket_ends(sorted_keys, num_buckets)
+    perm, flags = _decode_payload_step_major(
+        pv,
+        sbit if signs is not None else None,
+        num_rows,
+        table_rows=table.shape[0] if ec.cfg.glv else None,
     )
-    return prefix_at(
-        ec, row_prefix, offsets, ends - 1, packed3=packed3
-    )
+    rows = table[perm]  # [n, W] — the ONLY per-subtask gather, step-major
+    row_prefix, offsets = sorted_prefix_scan(ec, rows, flags, num_rows)
+    return prefix_at(ec, row_prefix, offsets, ends - 1)
 
 
 def _decode_payload_step_major(
@@ -284,11 +245,9 @@ def _decode_payload_step_major(
 ) -> tuple[jax.Array, jax.Array]:
     """Transpose the sorted payload vector to step-major order (element
     (c, r) = sorted position r*C + c) and split it into the gather
-    permutation and the sign bit. The kernels own the contiguous sorted
-    range [r*C, (r+1)*C) per lane r; transposing the 4 MB payload VECTOR
-    (not the gathered coordinate data) keeps the gather itself landing
-    directly in kernel layout. Shared by _sorted_prefix and
-    _boundary_prefix_compressed so the sbit/layout invariant lives once.
+    permutation and the flag row. Lane r owns the contiguous sorted range
+    [r*C, (r+1)*C); transposing the payload VECTOR (not the gathered
+    coordinate data) lets the gather land directly in scan order.
 
     ``table_rows`` (GLV): the packed table has table_rows physical rows
     but the stream indexes 2*table_rows logical columns (columns >= n are
@@ -310,97 +269,47 @@ def _decode_payload_step_major(
     return idx, sg
 
 
-def _boundary_prefix_compressed(
-    ec: CurveCtx,
-    packed: jax.Array,
-    pv: jax.Array,
-    sbit: int | None,
-    R: int,
-    ends: jax.Array,
-) -> PointBatch:
-    """Boundary prefixes via batched-affine pair compression
-    (ops/pallas_compress.py): adjacent sorted pairs are pre-added with
-    ~3.5 muls/point, the madd scan runs over n/2 compressed rows, and
-    bucket boundaries that fall INSIDE a pair (odd within-lane offset) are
-    fixed up with one gathered single-element add per bucket:
-
-        pe[b] = offsets[r] + pair_prefix[(c-1)//2, r]
-                + (c even ? element at sorted position i : identity)
-
-    with i = ends[b]-1, r = i // C, c = i % C (lane r owns the contiguous
-    sorted range [r*C, (r+1)*C))."""
-    import numpy as np
-
-    from msm_tpu.ops.pallas_compress import compressed_prefix_scan
-    from msm_tpu.ops.pallas_prefix import make_row_offsets
-    from msm_tpu.ops.pallas_scan import coord_words, unpack_coords
-    from msm_tpu.utils.limbs import int_to_limbs
-
-    cfg = ec.cfg
-    n = pv.shape[0]
-    C = n // R
-    Cp = C // 2
+def affine_from_rows(cfg, rows: jax.Array, flags: jax.Array):
+    """Packed table rows [..., W] + flag words [...] -> signed affine
+    Montgomery limbs (x, y), each [..., L]: bit 0 of a flag negates y (the
+    signed-bucket sign), bit 1 selects the beta*x column of GLV rows."""
     D = coord_words(cfg)
-    W = packed.shape[-1]  # 2D, or 3D triple rows under GLV
-    interp = pallas_interpret()
-    perm2, sgv = _decode_payload_step_major(
-        pv, sbit, R, table_rows=packed.shape[0] if cfg.glv else None
-    )
-    g = packed[perm2]  # [n, W] — the ONLY per-subtask gather
-    gxy = g.reshape(C, R, W).swapaxes(1, 2)
-    sg3 = sgv.reshape(C, 1, R)
-    rx, ry, rz = compressed_prefix_scan(cfg, gxy, sg3, interpret=interp)
-    ox, oy, oz = make_row_offsets(cfg, R, interpret=interp)(
-        rx[-1], ry[-1], rz[-1]
-    )
-    offsets = PointBatch(ox, oy, oz)
-
-    # --- extraction with odd-boundary correction --------------------------
-    i = ends - 1
-    valid = i >= 0
-    ic = jnp.maximum(i, 0)
-    r = ic // C
-    c = ic % C
-    jc = (c - 1) // 2  # last full pair covering [r*C, i]; -1 if none
-    pairs_valid = valid & (jc >= 0)
-    jcc = jnp.maximum(jc, 0)
-    rp = PointBatch(rx[jcc, :, r], ry[jcc, :, r], rz[jcc, :, r])
-    ident = ec.identity(ends.shape)
-    rp = point_where(pairs_valid, rp, ident)
-    base = ec.add(gather_points(offsets, r), rp)
-
-    need_s = valid & (c % 2 == 0)
-    sel = c * R + r  # step-major flat index of element i
-    srow = g[sel]  # [B, W]
-    fl = sgv[sel]  # bit 0 sign, bit 1 phi (GLV)
     if cfg.glv:
-        xd = jnp.where(
-            ((fl >> 1) != 0)[:, None], srow[:, D : 2 * D], srow[:, :D]
-        )
-        x_l = unpack_coords(xd, cfg)
-        y_l = unpack_coords(srow[:, 2 * D :], cfg)
+        phi = ((flags >> 1) & 1) != 0
+        xd = jnp.where(phi[..., None], rows[..., D : 2 * D], rows[..., :D])
+        yd = rows[..., 2 * D :]
     else:
-        x_l = unpack_coords(srow[:, :D], cfg)
-        y_l = unpack_coords(srow[:, D:], cfg)
-    q_limbs = jnp.asarray(
-        int_to_limbs(cfg.curve.modulus, cfg.word_size, cfg.num_words).astype(
-            np.int64
-        ),
-        jnp.int32,
+        xd, yd = rows[..., :D], rows[..., D:]
+    x = unpack_coords(xd, cfg)
+    y = unpack_coords(yd, cfg)
+    return x, jnp.where(((flags & 1) != 0)[..., None], -y, y)
+
+
+def sorted_prefix_scan(
+    ec: CurveCtx, rows: jax.Array, flags: jax.Array, num_rows: int
+) -> tuple[PointBatch, PointBatch]:
+    """Blocked inclusive prefix scan of the gathered, sorted, signed affine
+    points: R lanes x C = n/R mixed-add steps (lane r owns the sorted range
+    [r*C, (r+1)*C)); ``rows``/``flags`` arrive step-major (element (c, r)
+    first-axis-flat at c*R + r). Returns (row_prefix [C, R, L], exclusive
+    lane offsets [R]) for ``prefix_at``."""
+    n, W = rows.shape
+    R = num_rows
+    assert n % R == 0, (n, R)
+    C = n // R
+
+    def step(acc, xs):
+        r, f = xs
+        x2, y2 = affine_from_rows(ec.cfg, r, f)
+        acc = ec.add_affine(acc, x2, y2)
+        return acc, acc
+
+    totals, row_prefix = jax.lax.scan(
+        step,
+        ec.identity((R,)),
+        (rows.reshape(C, R, W), flags.reshape(C, R)),
     )
-    y_l = jnp.where(
-        ((fl & 1) != 0)[:, None], q_limbs[None, :] - y_l, y_l
-    )
-    rm = jnp.asarray(
-        int_to_limbs(cfg.r, cfg.word_size, cfg.num_words).astype(np.int64),
-        jnp.int32,
-    )
-    elem = PointBatch(
-        x_l, y_l, jnp.broadcast_to(rm[None, :], x_l.shape)
-    )
-    elem = point_where(need_s, elem, ident)
-    pe = ec.add(base, elem)
-    return point_where(valid, pe, ident)
+    return row_prefix, exclusive_prefix_points(ec, totals)
 
 
 def window_sum_from_pe(ec: CurveCtx, pe: PointBatch) -> PointBatch:
@@ -416,152 +325,20 @@ def window_sum_from_pe(ec: CurveCtx, pe: PointBatch) -> PointBatch:
     reference-shaped parity implementation."""
     B = pe.x.shape[0]
     assert (B - 1) & (B - 2) == 0, f"B-1 = {B - 1} must be a power of two"
-    from msm_tpu.ops.curve import _pallas_enabled
-
     body = PointBatch(pe.x[:-1], pe.y[:-1], pe.z[:-1])
-    if _pallas_enabled() and (B - 1) % 128 == 0:
-        from msm_tpu.ops.pallas_prefix import make_point_total
-
-        tx, ty, tz = make_point_total(
-            ec.cfg, B - 1, interpret=pallas_interpret()
-        )(body.x, body.y, body.z)
-        total = PointBatch(tx[:, 0], ty[:, 0], tz[:, 0])
-    else:
-        total = tree_reduce_points(ec, body)
+    total = tree_reduce_points(ec, body)
     last = PointBatch(pe.x[-1], pe.y[-1], pe.z[-1])
-    for _ in range((B - 1).bit_length() - 1):  # * (B-1), power of two
-        last = ec.double(last)
+    last = jax.lax.fori_loop(  # * (B-1), a power of two
+        0, (B - 1).bit_length() - 1, lambda _, a: ec.double(a), last
+    )
     return ec.add(last, ec.neg(total))
 
 
-def _counts_leq(keys: jax.Array, num_buckets: int) -> jax.Array:
-    """ends[b] = #{i : keys[i] <= b} (keys need NOT be sorted) — MXU
-    histogram: split each key into hi/lo bytes, build int8 one-hot
-    matrices, and let ONE int8 matmul count every (hi, lo) cell:
-        hist[h, l] = sum_i onehot_hi[h, i] * onehot_lo[i, l]
-    then an inclusive cumsum over the flattened histogram. Replaces the
-    earlier 21-step branchless binary search over the sorted keys, whose
-    element gathers cost ~5.4 ms/probe on v5e (~110 ms per 2^20 MSM) —
-    the matmul form runs on the MXU at ~0.5 ms/subtask and drops the
-    data dependency on the sort."""
-    n = keys.shape[0]
-    if num_buckets <= 128 or n < 4096:
-        # small cases: one-hot histogram fits directly (or isn't worth MXU)
-        q = jnp.arange(num_buckets, dtype=jnp.int32)
-        return jnp.sum(
-            (keys[None, :] <= q[:, None]).astype(jnp.int32), axis=1
-        )
-    from msm_tpu.ops.curve import _pallas_enabled
-    from msm_tpu.ops.pallas_hist import CHUNK, make_bucket_hist
-
-    if _pallas_enabled() and n % CHUNK == 0 and n < (1 << 24):
-        # in-kernel one-hots + MXU dot: keys in, 132 KB histogram out —
-        # the jnp-level formulations either fall off the MXU (operand-
-        # fused, ~26 ms/4x2^20) or pay ~45 ms of one-hot HBM writes
-        counts = make_bucket_hist(
-            n, num_buckets, interpret=pallas_interpret()
-        )(keys)[:num_buckets]
-        return jnp.cumsum(counts)
-    H = (num_buckets + 255) // 256  # hi cells
-    hi = (keys >> 8).astype(jnp.int32)
-    lo = (keys & 255).astype(jnp.int32)
-    oh_hi = (hi[None, :] == jnp.arange(H, dtype=jnp.int32)[:, None]).astype(
-        jnp.int8
-    )  # [H, n]
-    oh_lo = (lo[:, None] == jnp.arange(256, dtype=jnp.int32)[None, :]).astype(
-        jnp.int8
-    )  # [n, 256]
-    hist = jax.lax.dot_general(
-        oh_hi,
-        oh_lo,
-        (((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.int32,
-    )  # [H, 256]; hist[h, l] = #{keys == h*256 + l}
-    counts = hist.reshape(H * 256)[:num_buckets]
-    return jnp.cumsum(counts)
-
-
-def fused_scan_available(n: int, num_rows: int) -> bool:
-    """True when the Pallas mixed-add scan kernel can run this geometry
-    (single source of truth for models deciding the fused convert path)."""
-    from msm_tpu.ops.curve import _pallas_enabled
-
-    return _pallas_enabled() and n % num_rows == 0 and num_rows % 256 == 0
-
-
-def _sorted_prefix(
-    ec: CurveCtx,
-    pts: PointBatch | None,
-    pv: jax.Array,
-    sbit: int | None,
-    num_rows: int,
-    affine: bool,
-    packed: jax.Array | None = None,
-) -> tuple[PointBatch, PointBatch]:
-    """Gather points into sorted order (one fused packed gather) and run the
-    blocked prefix scan — via the fused Pallas mixed-add kernel when the
-    points are affine and we're on TPU, else the generic XLA path.
-
-    ``pv``: the sort payload — point index in bits [0, sbit), the bucket
-    sign in bit sbit (``sbit=None`` means unsigned: pv IS the permutation).
-    ``pts`` may be None when ``packed`` is given and the kernel path is
-    available (the fused-convert models never materialize the PointBatch).
-
-    Returns (row_prefix, row_offsets, packed3): the kernel path stores
-    row_prefix as the [C, R, P] boundary-gather layout (packed3=True,
-    emitted directly by the scan kernel; P = pallas_scan.pe_row_words);
-    the XLA path stays a PointBatch [C, R, L]."""
-    n = pv.shape[0]
-    R = num_rows
-    # GLV kernel runs need the triple-row packed table (the doubled
-    # PointBatch would rebuild the slow 2n-row gather); without it, fall
-    # through to the XLA path over the doubled pts.
-    use_kernel = affine and fused_scan_available(n, R) and (
-        packed is not None or (pts is not None and not ec.cfg.glv)
-    )
-    idx_mask = (1 << sbit) - 1 if sbit is not None else None
-    if not use_kernel:
-        assert pts is not None, "XLA path needs the unpacked PointBatch"
-        perm = pv if sbit is None else pv & idx_mask
-        L = pts.x.shape[-1]
-        cat = jnp.concatenate([pts.x, pts.y, pts.z], axis=-1)[perm]
-        spts = PointBatch(cat[..., :L], cat[..., L : 2 * L], cat[..., 2 * L :])
-        if sbit is not None:
-            spts = ec.neg_where((pv >> sbit).astype(bool), spts)
-        row_prefix, offsets = blocked_prefix_scan(ec, spts, R)
-        return row_prefix, offsets, False
-
-    from msm_tpu.ops.pallas_scan import make_scan_rows, pack_coords
-
-    C = n // R
-    if packed is None:
-        packed = jnp.concatenate(
-            [pack_coords(pts.x, ec.cfg), pack_coords(pts.y, ec.cfg)],
-            axis=-1,
-        )
-    perm2, sg = _decode_payload_step_major(
-        pv, sbit, R, table_rows=packed.shape[0] if ec.cfg.glv else None
-    )
-    g = packed[perm2]  # [n, W] — the ONLY per-subtask gather
-    W = g.shape[-1]
-    # [C, W, R]: XLA's gather emits rows-minor data, so this transpose is
-    # a layout assignment, not a copy — and the kernel wants coords-first
-    pe3, tx, ty, tz = make_scan_rows(
-        ec.cfg, C, R, interpret=pallas_interpret()
-    )(g.reshape(C, R, W).swapaxes(1, 2), sg.reshape(C, 1, R))
-    from msm_tpu.ops.pallas_scan import pe_layout_cpr
-
-    if pe_layout_cpr():  # limbs-first emission: ONE XLA copy to gather layout
-        pe3 = pe3.swapaxes(1, 2)
-    from msm_tpu.ops.pallas_prefix import make_row_offsets
-
-    # fused exclusive-prefix kernel over the [L, R] row totals: one dispatch
-    # instead of the ~25 of the blocked-XLA exclusive_prefix_points chain
-    ox, oy, oz = make_row_offsets(ec.cfg, R, interpret=pallas_interpret())(
-        tx, ty, tz
-    )
-    offsets = PointBatch(ox, oy, oz)
-    return pe3, offsets, True
+def bucket_ends(sorted_keys: jax.Array, num_buckets: int) -> jax.Array:
+    """ends[b] = #{i : keys[i] <= b}, by binary search of every bucket
+    index in the already-sorted keys (exact integer counts)."""
+    q = jnp.arange(num_buckets, dtype=sorted_keys.dtype)
+    return jnp.searchsorted(sorted_keys, q, side="right").astype(jnp.int32)
 
 
 def bucket_reduce_running(ec: CurveCtx, buckets: PointBatch) -> PointBatch:
@@ -610,39 +387,22 @@ def bucket_reduce_blocked(
     assert Bl & (Bl - 1) == 0, f"block size {Bl} must be a power of two"
     L = buckets.x.shape[-1]
 
-    from msm_tpu.ops.curve import _pallas_enabled
+    def arrange(a):  # steps-major, descending in-block
+        return a[1:].reshape(T, Bl, L).swapaxes(0, 1)[::-1]
 
-    if _pallas_enabled() and T % 8 == 0:
-        # fused phase-1 kernel: (m, g) live in VMEM across all Bl steps
-        from msm_tpu.ops.pallas_bpr import make_bpr_phase1
+    xs = PointBatch(
+        arrange(buckets.x), arrange(buckets.y), arrange(buckets.z)
+    )
 
-        def arr(a):  # body [B-1] -> [Bl, T, L] steps-major (ascending)
-            return a[1:].reshape(T, Bl, L).swapaxes(0, 1)
+    def step(carry, s):
+        mm, gg = carry
+        mm = ec.add(mm, s)
+        gg = ec.add(gg, mm)
+        return (mm, gg), None
 
-        mc, gc = make_bpr_phase1(
-            ec.cfg, Bl, T, interpret=pallas_interpret()
-        )(
-            arr(buckets.x), arr(buckets.y), arr(buckets.z)
-        )
-        m, g = PointBatch(*mc), PointBatch(*gc)
-    else:
-
-        def arrange(a):  # steps-major, descending in-block
-            return a[1:].reshape(T, Bl, L).swapaxes(0, 1)[::-1]
-
-        xs = PointBatch(
-            arrange(buckets.x), arrange(buckets.y), arrange(buckets.z)
-        )
-
-        def step(carry, s):
-            mm, gg = carry
-            mm = ec.add(mm, s)
-            gg = ec.add(gg, mm)
-            return (mm, gg), None
-
-        (m, g), _ = jax.lax.scan(
-            step, (ec.identity((T,)), ec.identity((T,))), xs
-        )
+    (m, g), _ = jax.lax.scan(
+        step, (ec.identity((T,)), ec.identity((T,))), xs
+    )
     total_g = tree_reduce_points(ec, g)
     # sum_t t*m_t = sum_j suffix_j - suffix_0 (suffix_j = sum_{t>=j} m_t):
     # one reverse Hillis-Steele + one reduce — no per-thread scalar-mul

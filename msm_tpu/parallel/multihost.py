@@ -1,17 +1,17 @@
-"""Multi-host orchestration — `jax.distributed` glue for pod-slice runs.
+"""Multi-host orchestration — `jax.distributed` glue for multi-process runs.
 
 The reference is single-process/single-device (SURVEY §2.5: no communication
-backend beyond host<->GPU copies). The TPU framework scales across hosts by
+backend beyond host<->GPU copies). This framework scales across hosts by
 initializing the JAX distributed runtime and building one global mesh; the
 sharded MSM (``parallel/sharded.py``) then runs unchanged — stages 1-4 stay
-local to each chip's point shard and the window-sum merge rides ICI within a
-host and DCN across hosts (the all-gathered payload is ~KBs, so DCN latency
-is immaterial).
+local to each device's point shard and the window-sum merge is one
+all_gather (the all-gathered payload is ~KBs, so network latency is
+immaterial).
 
-Usage (same script on every host, e.g. under GKE/TPU-VM):
+Usage (same script on every host):
 
     from msm_tpu.parallel.multihost import init_multihost, global_mesh
-    init_multihost()                    # env-driven (TPU pods auto-detect)
+    init_multihost("host0:1234", num_processes=2, process_id=rank)
     mesh = global_mesh()                # 1-D mesh over ALL chips, all hosts
     res = msm_tpu.run_tpu_msm_sharded(points, scalars, mesh=mesh)
 """
@@ -29,8 +29,9 @@ def init_multihost(
     num_processes: int | None = None,
     process_id: int | None = None,
 ) -> None:
-    """Initialize the JAX distributed runtime. On TPU pods all arguments are
-    auto-detected from the environment; pass them explicitly elsewhere."""
+    """Initialize the JAX distributed runtime. Pass the coordinator address,
+    process count and this process's id unless the cluster environment
+    provides them."""
     kwargs = {}
     if coordinator_address is not None:
         kwargs["coordinator_address"] = coordinator_address
@@ -42,8 +43,8 @@ def init_multihost(
 
 
 def global_mesh(axis: str = "data"):
-    """1-D mesh over every chip of every host (jax.devices() is global after
-    init_multihost)."""
+    """1-D mesh over every device of every host (jax.devices() is global
+    after init_multihost)."""
     return default_mesh(jax.devices(), axis=axis)
 
 
@@ -58,7 +59,7 @@ def shard_global_inputs(mesh, axis: str, *host_arrays):
     — which only works when every mesh device is process-local. Each process
     materializes ONLY its addressable shards (first axis sharded over
     ``mesh[axis]``), so no host ever holds device memory for another host's
-    slice and nothing crosses DCN at input time."""
+    slice and nothing crosses the network at input time."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     out = []
@@ -85,7 +86,7 @@ def run_msm_multihost(
     result is replicated so each process returns the same JPoint.
 
     Requires ``init_multihost()`` first. Single-process meshes work too (the
-    code path is identical; collectives ride ICI/DCN only when they exist).
+    code path is identical; collectives cross hosts only when they exist).
     """
     from msm_tpu.models import common
     from msm_tpu.models.geometry import pick_geometry
@@ -104,9 +105,7 @@ def run_msm_multihost(
     x_u16, y_u16, s_u16 = common.pad_inputs(
         points, scalars, config, multiple=16 * d
     )
-    geom = pick_geometry(
-        x_u16.shape[0] // d, config.chunk_size, compress=config.compress
-    )
+    geom = pick_geometry(x_u16.shape[0] // d, config.chunk_size)
     xd, yd, sd = shard_global_inputs(mesh, axis, x_u16, y_u16, s_u16)
     ws = sharded_window_sums(xd, yd, sd, config, geom, mesh, axis)
     return common.window_sums_to_result(np.asarray(ws), config)

@@ -1,8 +1,8 @@
 """Multi-chip sharded MSM — the distributed layer the reference lacks.
 
 The reference is a single-`wgpu::Device` library (``src/cuzk/gpu.rs:11-23``);
-its only data movement is host<->GPU buffer traffic. The TPU-native scaling
-story (SURVEY §2.5, §5) shards the big axis — the n points / scalars — across
+its only data movement is host<->GPU buffer traffic. The scaling story
+(SURVEY §2.5, §5) shards the big axis — the n points / scalars — across
 a `jax.sharding.Mesh`:
 
 - stages 1-4 (decompose, sort-transpose, bucket scan, bucket reduce) run
@@ -12,12 +12,14 @@ a `jax.sharding.Mesh`:
   **Jacobian point-add tree** — NOT a `psum` (point addition is nonlinear in
   limb space). With the complete projective formulas the identity is a true
   neutral element, so the tree needs no masking. Window sums are tiny
-  (16 x 3 x 20 int32 ≈ 4 KB), so one `all_gather` over ICI + a local
-  log2(D)-depth tree-add is bandwidth-trivial; compute stays fully local.
+  (16 x 3 x 20 int32 ≈ 4 KB), so one `all_gather` (NCCL over NVLink on
+  GPUs) + a local log2(D)-depth tree-add is bandwidth-trivial; compute
+  stays fully local.
 
 Multi-host runs ride the same code path: `jax.distributed.initialize()` +
-a global mesh makes `shard_map` treat DCN hops identically (the all-gathered
-payload is KBs, so DCN latency is immaterial next to the local scan work).
+a global mesh makes `shard_map` treat cross-host hops identically (the
+all-gathered payload is KBs, so network latency is immaterial next to the
+local scan work).
 """
 
 from __future__ import annotations
@@ -63,7 +65,7 @@ def _tree_add_points(ec, stacked: jax.Array) -> jax.Array:
 
 #: Single-shard cuZK stages 1-4: u16 inputs [m, 16] -> Montgomery window
 #: sums [S, 3, L]. This IS the production single-chip body
-#: (models.cuzk._window_sums_all — fused kernels, telescoped reduction,
+#: (models.cuzk._window_sums_all — packed-table scan, telescoped reduction,
 #: INCLUDING the n > SLICE per-slice composition, so a shard larger than
 #: 2^20 slices locally exactly like the single-chip path): one pipeline,
 #: whether sharded or not, exactly like the reference's single
@@ -135,8 +137,7 @@ def compute_msm_sharded(
     # shards larger than CHUNK_MAX run host-level chunks of d*CHUNK_MAX
     # global points whose window sums merge in exact ints
     geom = geometry or pick_geometry(
-        min(n // d, _cuzk.SLICE), config.chunk_size,
-        compress=config.compress,
+        min(n // d, _cuzk.SLICE), config.chunk_size
     )
     sharding = NamedSharding(mesh, P(axis, None))
     chunk_global = _cuzk.CHUNK_MAX * d
@@ -144,8 +145,6 @@ def compute_msm_sharded(
         xd = jax.device_put(jnp.asarray(x_u16), sharding)
         yd = jax.device_put(jnp.asarray(y_u16), sharding)
         sd = jax.device_put(jnp.asarray(s_u16), sharding)
-        # land the uploads before dispatch (common.to_device_blocked note)
-        jax.block_until_ready([xd, yd, sd])
         ws = sharded_window_sums(xd, yd, sd, config, geom, mesh, axis)
         return common.window_sums_to_result(np.asarray(ws), config)
     from msm_tpu.oracle.pyecc import Curve
@@ -163,7 +162,6 @@ def compute_msm_sharded(
         sd = jax.device_put(
             jnp.asarray(s_u16[lo : lo + chunk_global]), sharding
         )
-        jax.block_until_ready([xd, yd, sd])
         ws = sharded_window_sums(xd, yd, sd, config, geom, mesh, axis)
         wj = common.window_sums_to_jpoints(np.asarray(ws), config)
         acc = wj if acc is None else [cv.add(a, b) for a, b in zip(acc, wj)]

@@ -12,7 +12,7 @@ Composes the two serving-scale features the reference lacks entirely
   = ``all_gather`` of the KB-size window sums + a Jacobian point-add tree.
 
 Here the cached table itself is a sharded ``jax.Array`` — each chip holds
-(and converts, at build time) only its own point shard — so a pod-slice
+(and converts, at build time) only its own point shard — so a multi-device
 prover pays the table build once and every subsequent proof runs only the
 scalar-side pipeline, compute-local per chip:
 
@@ -51,13 +51,12 @@ from msm_tpu.parallel.sharded import _tree_add_points, default_mesh
 
 
 @functools.partial(
-    jax.jit, static_argnames=("cfg", "num_rows", "slice_n", "mesh", "axis")
+    jax.jit, static_argnames=("cfg", "slice_n", "mesh", "axis")
 )
 def _prepare_tables_sharded(
     x_u16: jax.Array,
     y_u16: jax.Array,
     cfg: MsmConfig,
-    num_rows: int,
     slice_n: int,
     mesh: Mesh,
     axis: str,
@@ -76,13 +75,10 @@ def _prepare_tables_sharded(
 
         def body(args):
             xa, ya = args
-            pts, packed = common.prepare_points(ec, xa, ya, num_rows)
-            if packed is not None:
-                return {"packed": packed}
-            return {"pts": (pts.x, pts.y, pts.z)}
+            return common.prepare_points(ec, xa, ya)
 
         if k == 1:
-            return jax.tree.map(lambda a: a[None], body((xk[0], yk[0])))
+            return body((xk[0], yk[0]))[None]
         return jax.lax.map(body, (xk, yk))
 
     spec = P(axis, None)
@@ -189,9 +185,7 @@ class ShardedMsmPlan:
         self._chunk_n = min(self.N, cuzk.CHUNK_MAX * d)
         shard_n = self._chunk_n // d
         slice_n = min(shard_n, cuzk.SLICE)
-        self.geom = geometry or pick_geometry(
-            slice_n, self.cfg.chunk_size, compress=self.cfg.compress
-        )
+        self.geom = geometry or pick_geometry(slice_n, self.cfg.chunk_size)
         self._sharding = NamedSharding(self.mesh, P(self.axis, None))
         self._tables = []
         for lo in range(0, self.N, self._chunk_n):
@@ -201,22 +195,15 @@ class ShardedMsmPlan:
             yd = jax.device_put(
                 jnp.asarray(y_u16[lo : lo + self._chunk_n]), self._sharding
             )
-            # land the uploads before dispatch (common.to_device_blocked)
-            jax.block_until_ready([xd, yd])
             self._tables.append(
                 _prepare_tables_sharded(
-                    xd, yd, self.cfg, self.geom.num_rows, slice_n,
-                    self.mesh, self.axis,
+                    xd, yd, self.cfg, slice_n, self.mesh, self.axis
                 )
             )
 
     def _put_scalars(self, sp: np.ndarray, batched: bool) -> jax.Array:
         spec = P(None, self.axis, None) if batched else P(self.axis, None)
-        sd = jax.device_put(
-            jnp.asarray(sp), NamedSharding(self.mesh, spec)
-        )
-        jax.block_until_ready(sd)
-        return sd
+        return jax.device_put(sp, NamedSharding(self.mesh, spec))
 
     def jpoint(self, scalars) -> JPoint:
         """Run the plan over one scalar set -> oracle JPoint."""

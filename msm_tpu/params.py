@@ -1,6 +1,6 @@
-"""Curve / field / limb-geometry parameters for the TPU MSM framework.
+"""Curve / field / limb-geometry parameters for the MSM framework.
 
-This is the TPU-native analogue of the reference's configuration layer:
+This is the analogue of the reference's configuration layer:
 
 - compile-time constants ``WORD_SIZE`` / ``P`` / ``PARAMS``
   (reference: ``src/cuzk/msm.rs:34-46``),
@@ -220,7 +220,7 @@ def calc_num_words(word_size: int, num_bits: int) -> int:
 class MsmConfig:
     """Static configuration closed over by every kernel factory.
 
-    TPU-native analogue of ``ShaderManager``'s template data
+    Analogue of ``ShaderManager``'s template data
     (``src/cuzk/shader_manager.rs:54-100``): limb geometry, window geometry
     and the baked field constants, all derived from (curve, word_size,
     chunk_size).
@@ -231,16 +231,6 @@ class MsmConfig:
     chunk_size: int = 16  # scalar window bit-width (msm.rs:79)
     glv: bool = False  # GLV endomorphism split (ops/glv.py): half the
     #                    windows over 2x points; needs curve.a == 0
-    compress: bool = False  # batched-affine pair compression of the sorted
-    #                    stream (ops/pallas_compress.py): ~3.5 muls/point to
-    #                    pre-add adjacent pairs, then the madd scan runs on
-    #                    n/2 rows; kernel path only, needs (n/R) even
-    karatsuba: bool = False  # difference-Karatsuba phase-1 convolutions in
-    #                    the Pallas Montgomery product (pallas_curve): 3
-    #                    half-size schoolbook convs (-28% phase-1 mul rows)
-    #                    at the cost of extra window adds + one mid-sweep;
-    #                    needs num_words even and the int32 column budget
-    #                    (static asserts in _make_field_ops)
 
     # ---- limb geometry -----------------------------------------------------
     @property
@@ -327,9 +317,9 @@ class MsmConfig:
         """3b as a plain small integer when it fits comfortably in the limb
         budget (all shipped curves qualify: BN254 3b=9, BLS12-377 3b=3,
         Pasta 3b=15). Multiplying a Montgomery-form value by a plain small
-        integer stays in Montgomery form (k * xR = (kx)R), so the kernels
-        replace the two mont_muls-by-mont(3b) per point add with one
-        VPU multiply + carry sweep each."""
+        integer stays in Montgomery form (k * xR = (kx)R), so the scan
+        kernel replaces the two mont_muls-by-mont(3b) per point add with
+        one integer multiply + carry sweep each."""
         b3 = 3 * self.curve.b
         return b3 if b3 * ((1 << self.word_size) + 64) < (1 << 31) // 4 else None
 
@@ -357,11 +347,9 @@ DEFAULT_CONFIG = MsmConfig(curve=BN254)
 
 def pick_chunk_size(n: int) -> int:
     """Size-dependent window rule (the reference's ``chunk_size = n>=65536 ?
-    16 : 4`` heuristic at msm.rs:79, re-tuned for this implementation on
-    v5e): small n is bucket-machinery-bound, so smaller windows win.
-
-    Measured (BN254, one v5e chip): 2^16: c13=301ms vs c16=372ms;
-    2^18: c14=519ms vs c16=554ms; 2^20: c16=1.30s optimal.
+    16 : 4`` heuristic at msm.rs:79, re-tuned for this implementation):
+    small n is bucket-machinery-bound, so smaller windows win. Not yet
+    tuned on the H100.
     """
     if n <= (1 << 16):
         return 13

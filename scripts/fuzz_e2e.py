@@ -1,5 +1,5 @@
 """Config-space differential fuzzer: random (curve, n, chunk_size,
-word_size, glv, compress) pipelines vs the pure-python oracle.
+word_size, glv) pipelines vs the pure-python oracle.
 
 The reference fuzzes only the input size on one fixed config
 (``tests/test_webgpu_msm_cuzk_random.rs:11-15``); here the whole config
@@ -51,21 +51,10 @@ def main() -> None:
         chunk = int(rng.choice([4, 8, 13, 16]))
         word_size = int(rng.choice([12, 13]))
         glv = bool(rng.integers(2))
-        compress = bool(rng.integers(2))
         n = int(rng.integers(1, 200))
         cfg = MsmConfig(
-            curve=curve, chunk_size=chunk, word_size=word_size,
-            glv=glv, compress=compress,
+            curve=curve, chunk_size=chunk, word_size=word_size, glv=glv
         )
-        # r5: fold the difference-Karatsuba phase-1 into the lattice on
-        # eligible limb geometries (even L + int32 column budget)
-        from msm_tpu.ops.pallas_curve import karatsuba_ok
-
-        kara = bool(rng.integers(2)) and karatsuba_ok(cfg)
-        if kara:
-            from dataclasses import replace
-
-            cfg = replace(cfg, karatsuba=True)
         cv = Curve(curve)
         base = [cv.to_affine(p) for p in cv.sample_points(
             max(1, n // 2), seed=int(rng.integers(1 << 30)))]
@@ -85,24 +74,14 @@ def main() -> None:
             else int.from_bytes(rng.bytes(32), "little") % r
             for _ in range(n)
         ]
-        # alternate the kernel path: on the CPU backend the fused Pallas
-        # kernels only engage in interpret mode, so odd trials run the
-        # production-kernel pipeline and even trials the XLA fallback
-        from msm_tpu.ops.curve import set_pallas_mode
-
-        mode = "interpret" if trial % 2 else "auto"
         rec = dict(trial=trial, curve=curve.name, n=n, chunk=chunk,
-                   w=word_size, glv=glv, compress=compress, kara=kara,
-                   mode=mode)
+                   w=word_size, glv=glv)
         t0 = time.time()
         try:
-            set_pallas_mode(mode)
             got = compute_msm_jpoint(pts, ks, cfg)
         except Exception as e:
             print(json.dumps({**rec, "error": repr(e)[:300]}), flush=True)
             sys.exit(1)
-        finally:
-            set_pallas_mode("auto")
         want = cv.msm_naive([cv.from_affine(*p) for p in pts], ks)
         ok = cv.eq(got, want)
         rec["s"] = round(time.time() - t0, 1)

@@ -1,7 +1,9 @@
 """Measure the production MSM wall-clock across sizes (one JSON line each).
 
-Run: python scripts/size_sweep.py [--sizes 12,14,16,18,20,22] [--verify]
-Timing = dispatch-to-result single fetch (bench.py convention).
+Run on a GPU: python scripts/size_sweep.py [--sizes 12,14,16,18,20,22] [--verify]
+Timing = dispatch-to-result single fetch (bench.py convention); every line
+names the device (bench.device_fields, which refuses to run without a GPU
+unless JAX_PLATFORMS=cpu is set on purpose).
 """
 
 from __future__ import annotations
@@ -23,6 +25,12 @@ def main() -> None:
 
     import jax.numpy as jnp
     import numpy as np
+
+    from bench import device_fields
+    from msm_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
+    dev = device_fields()
 
     from msm_tpu.models import common
     from msm_tpu.models.cuzk import CHUNK_MAX, compute_msm_jpoint, cuzk_msm_point
@@ -52,12 +60,12 @@ def main() -> None:
 
                 ok = bool(cv.eq(res, best_msm(pts, ks, curve=cfg.curve)))
                 assert ok, f"size 2^{sz} MISMATCH"
-            print(json.dumps({"size": sz, "ms": round(ms, 1),
-                              "chunked": True, "verified": ok}), flush=True)
+            print(json.dumps({"size": sz, "ms": ms, "chunked": True,
+                              "verified": ok, **dev}), flush=True)
             continue
         x, y, s = common.pad_inputs(pts, ks, cfg)
         xd, yd, sd = jnp.asarray(x), jnp.asarray(y), jnp.asarray(s)
-        geom = pick_geometry(x.shape[0], cfg.chunk_size, compress=cfg.compress)
+        geom = pick_geometry(x.shape[0], cfg.chunk_size)
         t0 = time.time()
         arr = np.asarray(cuzk_msm_point(xd, yd, sd, cfg, geom))
         compile_s = time.time() - t0
@@ -75,8 +83,8 @@ def main() -> None:
             ok = bool(cv.eq(res, best_msm(pts, ks, curve=cfg.curve)))
             assert ok, f"size 2^{sz} MISMATCH"
         print(json.dumps({
-            "size": sz, "ms": round(ms, 1), "chunk": cfg.chunk_size,
-            "compile_s": round(compile_s, 1), "verified": ok,
+            "size": sz, "ms": ms, "chunk": cfg.chunk_size,
+            "compile_s": compile_s, "verified": ok, **dev,
         }), flush=True)
 
 

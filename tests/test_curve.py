@@ -231,11 +231,12 @@ def test_double_chain_bounded_with_R_offset_representation(curve_name, chunk):
     magnitude-R values are a FIXED POINT of mont_mul (R*R/R = R) that the
     RCB16 add chains amplify ~8x per point op until int32 limbs overflow
     (observed at iteration 7 of a secp256k1 window-sum doubling ladder).
-    The top-limb renormalization fold in FieldCtx.mont_mul and the Pallas
-    _make_field_ops must keep a 12-double chain exact AND limb-bounded."""
+    The top-limb renormalization fold in FieldCtx.mont_mul must keep a
+    12-double chain exact AND limb-bounded, both op-by-op and as the jitted
+    fori_loop the device Horner ladder runs."""
     import jax
 
-    from msm_tpu.ops.curve import get_curve_ctx, set_pallas_mode
+    from msm_tpu.ops.curve import get_curve_ctx
     from msm_tpu.params import CURVES
 
     # every param compiles fresh programs (unique cfg); without this the
@@ -267,15 +268,19 @@ def test_double_chain_bounded_with_R_offset_representation(curve_name, chunk):
     d = PointBatch(*[jnp.asarray(a, jnp.int32) for a in (lx, ly, lz)])
     gd = cv.from_affine(gx, gy)
     rinv = cfg.rinv
-    for mode in ("auto", "interpret"):
-        dd, gg = d, gd
-        set_pallas_mode(mode)
-        try:
+    gg = gd
+    for _ in range(12):
+        gg = cv.double(gg)
+    ladder = jax.jit(
+        lambda p: jax.lax.fori_loop(0, 12, lambda _, a: ec.double(a), p)
+    )
+    for mode in ("op_by_op", "fori_loop"):
+        if mode == "fori_loop":
+            dd = ladder(d)
+        else:
+            dd = d
             for _ in range(12):
                 dd = ec.double(dd)
-                gg = cv.double(gg)
-        finally:
-            set_pallas_mode("auto")
         X = L.limbs_to_int(np.asarray(dd.x, np.int64), cfg.word_size) * rinv % p
         Y = L.limbs_to_int(np.asarray(dd.y, np.int64), cfg.word_size) * rinv % p
         Z = L.limbs_to_int(np.asarray(dd.z, np.int64), cfg.word_size) * rinv % p

@@ -278,23 +278,18 @@ def test_glv_msm_e2e_bls12_377():
 
 @pytest.mark.slow  # frozen feature: full tier
 def test_glv_fused_pipeline_interpret():
-    """GLV x every fused kernel (convert+phi-convert, scan, offsets,
-    histogram, point-total) in interpret mode — the production TPU program
-    for a GLV config, on CPU."""
+    """GLV x the packed triple-row table (x, beta*x, y) at a multi-step
+    scan geometry: the phi bit riding the sort payload must select beta*x
+    inside the scan for every phi column."""
     from msm_tpu.models.cuzk import compute_msm_jpoint
     from msm_tpu.models.geometry import MsmGeometry
-    from msm_tpu.ops.curve import set_pallas_mode
     from msm_tpu.oracle import best_msm
 
     cv = Curve(BN254)
     pts, ks = _msm_fixture(4096, seed=22)
     cfg = MsmConfig(curve=BN254, chunk_size=8, glv=True)
     geom = MsmGeometry(num_rows=256, bpr_threads=64, subtask_batch=4)
-    set_pallas_mode("interpret")
-    try:
-        got = compute_msm_jpoint(pts, ks, config=cfg, geometry=geom)
-    finally:
-        set_pallas_mode("auto")
+    got = compute_msm_jpoint(pts, ks, config=cfg, geometry=geom)
     assert cv.eq(got, best_msm(pts, ks))
 
 

@@ -1,7 +1,7 @@
 """Parity tests for the benchmarkable Montgomery-multiplier variants.
 
 The reference ships several alternate multipliers swept over word sizes
-13..16 (``src/cuzk/utils.rs:399-431``). The TPU analogues cover the full
+13..16 (``src/cuzk/utils.rs:399-431``). The JAX analogues cover the full
 menu (SURVEY §2.2): ``mont_mul_eager`` — uint32 eager-carry classic CIOS
 (mont_pro_cios analogue); ``mont_mul_nsafe`` — nSafe-parameterized
 grouped-carry product + plain wide reduce (mont_pro_modified +

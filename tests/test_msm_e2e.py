@@ -229,8 +229,8 @@ def test_cuzk_msm_4096():
 
 
 def test_cuzk_msm_sliced_path(monkeypatch):
-    """The n > SLICE slice-and-merge branch (production trigger: n > 2^20,
-    where the packed table outgrows VMEM residency) — exercised at CPU
+    """The n > SLICE slice-and-merge branch (production trigger: n > 2^20)
+    — exercised at CPU
     scale by shrinking SLICE so a 1024-point MSM runs as 4 slices."""
     import msm_tpu.models.cuzk as cuzk_mod
 
@@ -245,8 +245,8 @@ def test_cuzk_msm_sliced_path(monkeypatch):
 
 
 def test_cuzk_msm_host_chunked_path(monkeypatch):
-    """The n > CHUNK_MAX host-chunking branch (production trigger: n > 2^22,
-    where the u16 input arrays outgrow HBM): window sums of each chunk are
+    """The n > CHUNK_MAX host-chunking branch (production trigger: n > 2^22):
+    window sums of each chunk are
     point-added on the host before the Horner. Exercised at CPU scale by
     shrinking both caps so a 1024-point MSM runs as 2 host chunks of 2
     device slices each (covering the chunk x slice composition)."""

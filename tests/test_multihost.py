@@ -1,10 +1,10 @@
 """Multi-host proof: 2 real processes x 2 CPU devices -> 4-device global mesh.
 
-BASELINE.md's "N>=2 hosts" row, validated without pod hardware: two actual
+BASELINE.md's "N>=2 hosts" row, validated without a cluster: two actual
 OS processes join through ``jax.distributed.initialize`` (localhost
 coordinator, gloo CPU collectives), build one global mesh, and run the SPMD
 sharded MSM (``run_msm_multihost``). The cross-process window-sum merge uses
-the same all_gather + point-add tree the pod path uses; process-spanning
+the same all_gather + point-add tree a cluster run uses; process-spanning
 collectives exercise the exact ``jax.distributed`` glue (coordinator
 handshake, global device enumeration, multi-process ``make_array_from_callback``
 input sharding) that a real multi-host run depends on.

@@ -1,11 +1,12 @@
 """Plumbing validation for the multi-host scaling-bench artifact.
 
 ``python bench.py --sharded D --multihost`` is the BASELINE.md "N hosts"
-measurement command, meant to run unchanged (SPMD) on every host of a pod
-slice. This test drives it with 2 real OS processes x 2 CPU devices
-(localhost coordinator via the MSM_TPU_* env overrides) and asserts process
-0 emits the one-line JSON artifact with a sane per-chip throughput row —
-so the command is known-good before it ever sees pod hardware.
+measurement command, meant to run unchanged (SPMD) in every process of a
+multi-host run. This test drives it with 2 real OS processes x 2 CPU
+devices (localhost coordinator via the --coordinator/--num-processes/
+--process-id options) and asserts
+process 0 emits the one-line JSON artifact with a sane per-device
+throughput row — so the command is known-good before it sees a cluster.
 """
 
 import json
@@ -33,17 +34,13 @@ def test_multihost_bench_two_processes():
     for pid in range(2):
         env = dict(os.environ)
         env.pop("XLA_FLAGS", None)
-        env.update(
-            JAX_PLATFORMS="cpu",
-            MSM_TPU_COORD=f"localhost:{port}",
-            MSM_TPU_NPROCS="2",
-            MSM_TPU_PID=str(pid),
-            MSM_TPU_CPU_DEVICES="2",
-        )
+        env.update(JAX_PLATFORMS="cpu")
         procs.append(
             subprocess.Popen(
                 [sys.executable, BENCH, "--sharded", "4", "--multihost",
-                 "--size", "8", "--reps", "1"],
+                 "--size", "8", "--reps", "1",
+                 "--coordinator", f"localhost:{port}", "--num-processes",
+                 "2", "--process-id", str(pid), "--cpu-devices", "2"],
                 stdout=subprocess.PIPE,
                 stderr=subprocess.PIPE,
                 text=True,
@@ -72,12 +69,12 @@ def test_multihost_bench_two_processes():
     ]
     assert len(jsons) == 1, outs
     rec = jsons[0]
-    assert rec["metric"] == "bn254_msm_2^8_multihost_2hosts_4chips"
-    assert rec["unit"] == "field_muls_per_sec_per_chip"
-    # virtual CPU mesh -> the honest convention (VERDICT r4 weak #2) nulls
-    # the headline value and flags plumbing_only; the per-shard detail rows
-    # still carry the measured plumbing numbers
+    assert rec["metric"] == "bn254_msm_2^8_multihost_2hosts_4devices"
+    assert rec["unit"] == "field_muls_per_sec_per_device"
+    # a CPU run nulls the headline value and flags plumbing_only; the
+    # per-shard detail rows still carry the measured plumbing numbers
     assert rec["plumbing_only"] is True
     assert rec["value"] is None
-    assert rec["detail"][0]["field_muls_per_sec_per_chip"] > 0
+    assert rec["platform"] == "cpu"
+    assert rec["detail"][0]["field_muls_per_sec_per_device"] > 0
     assert rec["detail"][0]["shards"] == 4

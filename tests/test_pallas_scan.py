@@ -1,116 +1,100 @@
-"""Fused scan-kernel parity tests (interpret mode on CPU).
+"""Bucket-scan parity tests.
 
-Validates the packed mixed-add row scan against the XLA blocked prefix
-scan — the TPU analogue of the reference's stage-level SMVP parity test
-(``tests/smvp_shader.rs:292-334`` asserting GPU bucket sums ==
-``cpu_smvp_signed``).
+Validates the production packed-row mixed-add scan
+(``scan.sorted_prefix_scan``: packed canonical rows, signed flags, RCB16
+mixed additions) against the generic projective ``blocked_prefix_scan`` and
+against exact python-int prefix sums — the analogue of the reference's
+stage-level SMVP parity test (``tests/smvp_shader.rs:292-334`` asserting GPU
+bucket sums == ``cpu_smvp_signed``). The module name dates from the first
+hardware target's Pallas scan kernel; every stage here is XLA.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from msm_tpu.models import common
 from msm_tpu.ops.curve import PointBatch, get_curve_ctx
-from msm_tpu.ops.pallas_scan import (
-    coord_words,
-    make_scan_rows,
-    pack_coords,
-    unpack_pe_rows,
-)
-from msm_tpu.ops.scan import blocked_prefix_scan
+from msm_tpu.ops.packing import coord_words, pack_coords
+from msm_tpu.ops.scan import blocked_prefix_scan, sorted_prefix_scan
 from msm_tpu.oracle.pyecc import Curve
-from msm_tpu.params import BLS12_377, BN254, PALLAS, MsmConfig
+from msm_tpu.params import BLS12_377, BLS12_381, BN254, PALLAS, MsmConfig
 
 CFG = MsmConfig(curve=BN254)
 
 
-def test_fused_scan_matches_blocked_scan():
-    ec = get_curve_ctx(CFG)
-    cv = Curve(CFG.curve)
-    C, R = 4, 512
+def _scan_inputs(cfg, C, R, seed):
+    """Step-major packed rows + random sign flags for C x R points, and the
+    same signed points as a PointBatch in lane-major order."""
+    ec = get_curve_ctx(cfg)
+    cv = Curve(cfg.curve)
     n = C * R
-    pts_j = cv.sample_points(64, seed=5)
-    aff = [cv.to_affine(p) for p in pts_j]
-    pts_a = [aff[i % 64] for i in range(n)]
-    x_u16, y_u16, _ = common.pad_inputs(pts_a, [0] * n, CFG)
+    aff = [cv.to_affine(p) for p in cv.sample_points(32, seed=seed)]
+    pts_a = [aff[i % 32] for i in range(n)]
+    x_u16, y_u16, _ = common.pad_inputs(pts_a, [0] * n, cfg)
     pts = common.u16_to_mont_points(
         ec, jnp.asarray(x_u16)[:n], jnp.asarray(y_u16)[:n]
     )
-    rng = np.random.default_rng(0)
-    signs = jnp.asarray(rng.integers(0, 2, size=(n,)), dtype=jnp.int32)
+    signs = np.random.default_rng(seed).integers(0, 2, size=n).astype(np.int32)
+    table = common.pack_points(pts, cfg)
 
-    packed = common.pack_points(pts, CFG)
-    L = CFG.num_words
+    def step_major(a):  # lane-major [n, ...] -> step-major [n, ...]
+        return a.reshape((R, C) + a.shape[1:]).swapaxes(0, 1).reshape(a.shape)
 
-    def arrange(a, w):
-        return a.reshape(R, C, w).swapaxes(0, 1)
-
-    scan = make_scan_rows(CFG, C, R, tile=256, interpret=True)
-    pe3, tx, ty, tz = scan(
-        arrange(packed, 2 * coord_words(CFG)).swapaxes(1, 2),  # [C, 2D, R]
-        signs.reshape(R, C).swapaxes(0, 1).reshape(C, 1, R),
-    )
-    pe3 = unpack_pe_rows(pe3, CFG)
-    got = PointBatch(  # [C, R, 3L] boundary layout -> [C, R, L] batch
-        pe3[..., :L], pe3[..., L : 2 * L], pe3[..., 2 * L :]
+    spts = ec.neg_where(jnp.asarray(signs).astype(bool), pts)
+    return (
+        ec, pts_a, signs, step_major(table),
+        step_major(jnp.asarray(signs)), spts,
     )
 
-    spts = ec.neg_where(signs.astype(bool), pts)
-    want, _ = blocked_prefix_scan(ec, spts, R)
+
+def _check_against_blocked(cfg, C, R, seed):
+    ec, _, _, rows, flags, spts = _scan_inputs(cfg, C, R, seed)
+    got, got_off = jax.jit(
+        lambda r, f: sorted_prefix_scan(ec, r, f, R)
+    )(rows, flags)
+    want, want_off = blocked_prefix_scan(ec, spts, R)
     assert bool(jnp.all(ec.eq(want, got)))
-    # lane-total outputs match the last prefix step, limbs-first
-    tot = PointBatch(tx.T, ty.T, tz.T)
-    last = PointBatch(pe3[-1, :, :L], pe3[-1, :, L : 2 * L],
-                      pe3[-1, :, 2 * L :])
-    assert bool(jnp.all(ec.eq(tot, last)))
+    assert bool(jnp.all(ec.eq(want_off, got_off)))
 
 
-def test_row_offsets_kernel_matches_xla():
-    """Fused exclusive-prefix kernel (interpret) vs exclusive_prefix_points,
-    including the multi-chunk (C2 > 1) lane ownership path."""
-    from msm_tpu.ops.pallas_prefix import make_row_offsets
-    from msm_tpu.ops.scan import exclusive_prefix_points
-
-    ec = get_curve_ctx(CFG)
-    cv = Curve(CFG.curve)
-    R = 512
-    pts_j = cv.sample_points(64, seed=3)
-    aff = [cv.to_affine(p) for p in pts_j]
-    pts_a = [aff[i % 64] for i in range(R)]
-    x_u16, y_u16, _ = common.pad_inputs(pts_a, [0] * R, CFG)
-    pts = common.u16_to_mont_points(
-        ec, jnp.asarray(x_u16)[:R], jnp.asarray(y_u16)[:R]
-    )
-    want = exclusive_prefix_points(ec, pts)
-    ox, oy, oz = make_row_offsets(CFG, R, lanes=256, interpret=True)(
-        pts.x.T, pts.y.T, pts.z.T
-    )
-    got = PointBatch(ox, oy, oz)
-    assert bool(jnp.all(ec.eq(want, got)))
+def test_fused_scan_matches_blocked_scan():
+    """The packed-row mixed-add scan vs the generic projective scan:
+    row prefixes and exclusive lane offsets, signed points, BN254."""
+    _check_against_blocked(CFG, C=4, R=128, seed=5)
 
 
-def test_point_total_kernel_matches_tree_reduce():
-    """Fused point-sum reduction kernel (interpret) vs tree_reduce_points."""
-    from msm_tpu.ops.pallas_prefix import make_point_total
-    from msm_tpu.ops.scan import tree_reduce_points
+@pytest.mark.parametrize("curve", [BLS12_377, PALLAS], ids=lambda c: c.name)
+def test_fused_scan_other_curves(curve):
+    """Limb-geometry genericity: BLS12-377 (30 limbs, zero-slack modulus)
+    and Pasta (21 limbs: the top limb lies above the packed width)."""
+    _check_against_blocked(MsmConfig(curve=curve), C=2, R=64, seed=11)
 
-    ec = get_curve_ctx(CFG)
-    cv = Curve(CFG.curve)
-    N = 512
-    pts_j = cv.sample_points(64, seed=13)
-    aff = [cv.to_affine(p) for p in pts_j]
-    pts_a = [aff[i % 64] for i in range(N)]
-    x_u16, y_u16, _ = common.pad_inputs(pts_a, [0] * N, CFG)
-    pts = common.u16_to_mont_points(
-        ec, jnp.asarray(x_u16)[:N], jnp.asarray(y_u16)[:N]
-    )
-    want = tree_reduce_points(ec, pts)
-    tx, ty, tz = make_point_total(CFG, N, lanes=256, interpret=True)(
-        pts.x, pts.y, pts.z
-    )
-    got = PointBatch(tx[:, 0], ty[:, 0], tz[:, 0])
-    assert bool(jnp.all(ec.eq(want, got)))
+
+@pytest.mark.parametrize(
+    "curve", [BN254, BLS12_377, BLS12_381, PALLAS], ids=lambda c: c.name
+)
+def test_xla_scan_matches_python_ints(curve):
+    """Every row prefix of the production scan, canonicalized, equals the
+    exact python-int running sum of the signed points in its lane."""
+    cfg = MsmConfig(curve=curve)
+    C, R = 3, 8
+    ec, pts_a, signs, rows, flags, _ = _scan_inputs(cfg, C, R, seed=2)
+    row_prefix, _ = jax.jit(
+        lambda r, f: sorted_prefix_scan(ec, r, f, R)
+    )(rows, flags)
+    std = np.asarray(common.export_points_std(ec, row_prefix))  # [C,R,3,L]
+    cv = Curve(curve)
+    for r in range(R):
+        acc = None
+        for c in range(C):
+            x, y = pts_a[r * C + c]
+            pt = cv.from_affine(x, (-y) % curve.modulus if signs[r * C + c]
+                                else y)
+            acc = pt if acc is None else cv.add(acc, pt)
+            got = common.std_point_to_jpoint(std[c, r], cfg)
+            assert cv.eq(got, acc), (r, c)
 
 
 def test_window_sum_telescoping_matches_bpr():
@@ -174,236 +158,3 @@ def test_pack_roundtrip():
     assert packed.shape == (len(vals), coord_words(CFG))
     for i, v in enumerate(vals):
         assert _dense_to_int(packed[i]) == v % p, (i, v)
-
-
-def test_fused_convert_pack_matches_xla():
-    """The fused convert kernel (word extract + to-Montgomery + pack) must
-    equal the XLA conversion followed by packing, value-for-value."""
-    import jax
-
-    from msm_tpu.ops.pallas_convert import make_convert_pack
-    from msm_tpu.utils.limbs import limbs_to_int
-
-    ec = get_curve_ctx(CFG)
-    cv = Curve(CFG.curve)
-    n = 256
-    pts_j = cv.sample_points(32, seed=7)
-    aff = [cv.to_affine(p) for p in pts_j]
-    pts_a = [aff[i % 32] for i in range(n)]
-    x_u16, y_u16, _ = common.pad_inputs(pts_a, [0] * n, CFG)
-    xd, yd = jnp.asarray(x_u16)[:n], jnp.asarray(y_u16)[:n]
-
-    got = np.asarray(make_convert_pack(CFG, tile=128, interpret=True)(xd, yd))
-    pts = common.u16_to_mont_points(ec, xd, yd)
-    D = coord_words(CFG)
-    p = CFG.curve.modulus
-    # the kernel output is CANONICAL dense-packed: compare the packed
-    # integer against the FieldCtx conversion's value mod p
-    for col, ref in ((got[:, :D], pts.x), (got[:, D:], pts.y)):
-        for i in range(0, n, 37):
-            va = _dense_to_int(col[i])
-            vb = limbs_to_int(np.asarray(ref[i]), CFG.word_size) % p
-            assert va == vb and va < p, i
-
-
-@pytest.mark.slow  # non-production kernel (telescoped reduction replaced BPR): full tier
-def test_fused_bpr_matches_xla_reduce():
-    """Fused BPR phase-1 kernel (interpret) + the shared tail must equal
-    bucket_reduce_blocked's XLA scan path."""
-    from msm_tpu.ops.pallas_bpr import make_bpr_phase1
-    from msm_tpu.ops.scan import (
-        bucket_reduce_blocked,
-        hillis_steele_prefix,
-        tree_reduce_points,
-    )
-
-    ec = get_curve_ctx(CFG)
-    rng = np.random.default_rng(2)
-    NB, T = 257, 16
-    Bl = (NB - 1) // T
-    L = CFG.num_words
-
-    def rl(shape):
-        return jnp.asarray(
-            rng.integers(0, CFG.mask, size=shape + (L,)), dtype=jnp.int32
-        )
-
-    buckets = PointBatch(rl((NB,)), rl((NB,)), rl((NB,)))
-    want = bucket_reduce_blocked(ec, buckets, T)
-
-    def arr(a):
-        return a[1:].reshape(T, Bl, L).swapaxes(0, 1)
-
-    mc, gc = make_bpr_phase1(CFG, Bl, T, interpret=True)(
-        arr(buckets.x), arr(buckets.y), arr(buckets.z)
-    )
-    m, g = PointBatch(*mc), PointBatch(*gc)
-    total_g = tree_reduce_points(ec, g)
-    suff = hillis_steele_prefix(ec, m, reverse=True)
-    suff_total = tree_reduce_points(ec, suff)
-    s0 = PointBatch(suff.x[0], suff.y[0], suff.z[0])
-    corr = ec.add(suff_total, ec.neg(s0))
-    for _ in range(Bl.bit_length() - 1):
-        corr = ec.double(corr)
-    got = ec.add(total_g, corr)
-    assert bool(jnp.all(ec.eq(want, got)))
-
-
-@pytest.mark.parametrize(
-    "curve", [BLS12_377, PALLAS], ids=lambda c: c.name
-)
-def test_fused_scan_other_curves(curve):
-    """Kernel limb-geometry genericity: BLS12-377 (30 limbs, S1=3 path) and
-    Pasta (21 limbs — odd: phase-2 tail step + pack padding)."""
-    cfg = MsmConfig(curve=curve)
-    ec = get_curve_ctx(cfg)
-    cv = Curve(curve)
-    C, R = 2, 256
-    n = C * R
-    pts_j = cv.sample_points(32, seed=11)
-    aff = [cv.to_affine(p) for p in pts_j]
-    pts_a = [aff[i % 32] for i in range(n)]
-    x_u16, y_u16, _ = common.pad_inputs(pts_a, [0] * n, cfg)
-    pts = common.u16_to_mont_points(
-        ec, jnp.asarray(x_u16)[:n], jnp.asarray(y_u16)[:n]
-    )
-    rng = np.random.default_rng(4)
-    signs = jnp.asarray(rng.integers(0, 2, size=(n,)), dtype=jnp.int32)
-    packed = common.pack_points(pts, cfg)
-    L = cfg.num_words
-    W = 2 * coord_words(cfg)
-    scan = make_scan_rows(cfg, C, R, tile=256, interpret=True)
-    pe3, _, _, _ = scan(
-        packed.reshape(R, C, W).swapaxes(0, 1).swapaxes(1, 2),  # [C, W, R]
-        signs.reshape(R, C).swapaxes(0, 1).reshape(C, 1, R),
-    )
-    pe3 = unpack_pe_rows(pe3, cfg)
-    got = PointBatch(
-        pe3[..., :L], pe3[..., L : 2 * L], pe3[..., 2 * L :]
-    )
-    spts = ec.neg_where(signs.astype(bool), pts)
-    want, _ = blocked_prefix_scan(ec, spts, R)
-    assert bool(jnp.all(ec.eq(want, got)))
-
-
-def test_horner_ladder_kernel_matches_host():
-    """Device Horner ladder (masked doubling + cross-lane prefix) vs the
-    python-int host Horner on the same window sums, incl. identity lanes."""
-    from msm_tpu.models import common
-    from msm_tpu.ops.pallas_prefix import make_horner_ladder
-    from msm_tpu.oracle.pyecc import Curve
-
-    ec = get_curve_ctx(CFG)
-    cv = Curve(CFG.curve)
-    S, chunk = 16, 16
-    pts_j = cv.sample_points(S - 1, seed=9)
-    aff = [cv.to_affine(p) for p in pts_j]
-    x_u16, y_u16, _ = common.pad_inputs(aff, [0] * (S - 1), CFG)
-    pb = common.u16_to_mont_points(
-        ec, jnp.asarray(x_u16)[: S - 1], jnp.asarray(y_u16)[: S - 1]
-    )
-    ident = ec.identity((1,))  # window 3 empty: identity must be neutral
-    wx = jnp.concatenate([pb.x[:3], ident.x, pb.x[3:]])
-    wy = jnp.concatenate([pb.y[:3], ident.y, pb.y[3:]])
-    wz = jnp.concatenate([pb.z[:3], ident.z, pb.z[3:]])
-    hx, hy, hz = make_horner_ladder(CFG, S, chunk, interpret=True)(
-        wx.T, wy.T, wz.T
-    )
-    got_std = common.export_points_std(
-        ec, PointBatch(hx[None, :], hy[None, :], hz[None, :])
-    )
-    got = common.std_point_to_jpoint(np.asarray(got_std[0]), CFG)
-    ws_std = common.export_points_std(ec, PointBatch(wx, wy, wz))
-    want = common.window_sums_to_result(np.asarray(ws_std), CFG)
-    assert cv.eq(got, want)
-
-
-def test_mxu_bucket_hist_matches_numpy():
-    """Dedicated parity for the MXU one-hot histogram kernel
-    (ops/pallas_hist.make_bucket_hist) + the _counts_leq cumsum wrapper —
-    the one fused kernel whose only other coverage is the full interpret
-    e2e (n % 8192 == 0 engages it there; this test pins it directly so the
-    e2e can live in the full tier)."""
-    from msm_tpu.ops import scan as scan_mod
-    from msm_tpu.ops.curve import set_pallas_mode
-    from msm_tpu.ops.pallas_hist import CHUNK, make_bucket_hist
-
-    n, nb = 2 * CHUNK, 1 << 8
-    rng = np.random.default_rng(17)
-    keys = rng.integers(0, nb, size=n).astype(np.int32)
-    # skew: hammer a few buckets + leave some empty (cumsum edge cases)
-    keys[: n // 4] = 3
-    keys[n // 4 : n // 3] = nb - 1
-    kj = jnp.asarray(keys)
-    counts = np.asarray(
-        make_bucket_hist(n, nb, interpret=True)(kj)[:nb]
-    )
-    want = np.bincount(keys, minlength=nb)
-    assert (counts == want).all()
-    set_pallas_mode("interpret")
-    try:
-        ends = np.asarray(scan_mod._counts_leq(kj, nb))
-    finally:
-        set_pallas_mode("auto")
-    assert (ends == np.cumsum(want)).all()
-
-
-def test_pe_pack16_gate_and_roundtrip(monkeypatch):
-    """The int16 pe pair-packing gate (r5): opt-in via MSM_TPU_PE_PACK=1
-    (measured slower than the plain transpose on this Mosaic stack — see
-    pe_pack16), active exactly when the static limb bounds clear int16 —
-    all shipped w=13 curves pack; w=15/16 never do. Roundtrip exactness
-    on the full bound range."""
-    from msm_tpu.ops.pallas_scan import pe_pack16, pe_row_words, unpack_pe_rows
-    from msm_tpu.params import CURVES
-
-    assert not pe_pack16(MsmConfig(curve=BN254))  # default OFF
-    monkeypatch.setenv("MSM_TPU_PE_PACK", "1")
-    for name, spec in CURVES.items():
-        cfg13 = MsmConfig(curve=spec, word_size=13)
-        assert pe_pack16(cfg13), name  # production word size always packs
-        assert pe_row_words(cfg13) == (3 * cfg13.num_words + 1) // 2
-        cfg16 = MsmConfig(curve=spec, word_size=16)
-        assert not pe_pack16(cfg16), name
-        assert pe_row_words(cfg16) == 3 * cfg16.num_words
-    # roundtrip: the exact bound range the gate admits, incl. negatives
-    cfg = MsmConfig(curve=BN254)
-    lim = (1 << 14) + 256  # strictly wider than any admitted bound
-    rng = np.random.default_rng(23)
-    limbs = jnp.asarray(
-        rng.integers(-lim, lim + 1, size=(7, 3 * cfg.num_words)),
-        dtype=jnp.int32,
-    )
-    lo = limbs[..., 0::2] & 0xFFFF
-    hi = limbs[..., 1::2] << 16
-    packed = lo | hi
-    assert packed.shape[-1] == pe_row_words(cfg)
-    got = unpack_pe_rows(packed, cfg)
-    assert bool(jnp.all(got == limbs))
-    # kernel-level packed emission parity (interpret): distinct geometry
-    # so the lru_cached factory cannot collide with unpacked-built scans
-    ec = get_curve_ctx(cfg)
-    cv = Curve(cfg.curve)
-    C, R = 2, 256
-    n = C * R
-    aff = [cv.to_affine(p) for p in cv.sample_points(16, seed=21)]
-    pts_a = [aff[i % 16] for i in range(n)]
-    x_u16, y_u16, _ = common.pad_inputs(pts_a, [0] * n, cfg)
-    pts = common.u16_to_mont_points(
-        ec, jnp.asarray(x_u16)[:n], jnp.asarray(y_u16)[:n]
-    )
-    signs = jnp.zeros((n,), jnp.int32)
-    packed_in = common.pack_points(pts, cfg)
-    W = 2 * coord_words(cfg)
-    pe3, _, _, _ = make_scan_rows(cfg, C, R, tile=128, interpret=True)(
-        packed_in.reshape(R, C, W).swapaxes(0, 1).swapaxes(1, 2),
-        signs.reshape(R, C).swapaxes(0, 1).reshape(C, 1, R),
-    )
-    assert pe3.shape[-1] == (3 * cfg.num_words + 1) // 2  # packed rows
-    L = cfg.num_words
-    pe3 = unpack_pe_rows(pe3, cfg)
-    got_pts = PointBatch(
-        pe3[..., :L], pe3[..., L : 2 * L], pe3[..., 2 * L :]
-    )
-    want, _ = blocked_prefix_scan(ec, pts, R)
-    assert bool(jnp.all(ec.eq(want, got_pts)))

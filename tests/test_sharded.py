@@ -1,6 +1,6 @@
-"""Multi-chip sharded MSM tests on the 8-virtual-device CPU mesh.
+"""Multi-device sharded MSM tests on the 8-virtual-device CPU mesh.
 
-The TPU analogue of the reference's "test parallelism without parallel
+The analogue of the reference's "test parallelism without parallel
 hardware" pattern (CPU models simulating thread decomposition,
 ``src/cuzk/test/utils.rs``): conftest forces 8 host devices, the sharded
 pipeline runs with real shard_map + collectives.
@@ -53,20 +53,18 @@ def test_sharded_matches_single_chip():
 
 
 def test_sharded_fused_kernels_interpret():
-    """shard_map x Pallas co-test: the production fused kernels (convert/
-    pack, scan, row-offsets, point-total) execute INSIDE shard_map on the
-    CPU mesh via interpret mode. Real multi-chip TPU runs compose exactly
-    these two mechanisms, and this platform has a history of composition
-    miscompiles (vmap-of-pallas, models/common.subtask_batch) — this test
-    catches a shard_map-of-pallas miscompile before hardware does."""
+    """shard_map x the production scan at a multi-step geometry: the
+    packed-table convert, the packed-row gather, the C = 4-step mixed-add
+    scan, the lane offsets and the telescoped reduction execute INSIDE
+    shard_map on the CPU mesh (1024 points per shard, 256 scan lanes),
+    vs the oracle. Multi-device GPU runs compose exactly these two
+    mechanisms."""
     if len(jax.devices()) < 2:
         pytest.skip("needs 2 devices")
     from msm_tpu.models.geometry import MsmGeometry
-    from msm_tpu.ops.curve import set_pallas_mode
     from msm_tpu.oracle import best_msm
 
     mesh = default_mesh(jax.devices()[:2])
-    # 1024 points/shard with num_rows=256 satisfies fused_scan_available
     geom = MsmGeometry(num_rows=256, bpr_threads=64, subtask_batch=4)
     n = 2048
     base = [CV.to_affine(p) for p in CV.sample_points(32, seed=11)]
@@ -76,30 +74,23 @@ def test_sharded_fused_kernels_interpret():
         int.from_bytes(rng.bytes(32), "little") % BN254.order
         for _ in range(n)
     ]
-    set_pallas_mode("interpret")
-    try:
-        got = compute_msm_sharded(pts, ks, CFG, mesh=mesh, geometry=geom)
-    finally:
-        set_pallas_mode("auto")
+    got = compute_msm_sharded(pts, ks, CFG, mesh=mesh, geometry=geom)
     assert CV.eq(got, best_msm(pts, ks))
 
 
 @pytest.mark.slow
-def test_sharded_glv_compress_interpret():
-    """shard_map x (GLV + pair compression) co-test: the optimized
-    production-2^20 feature set (cfg.glv, cfg.compress — including the
-    compression fwd/inv/bwd kernels and the odd-boundary corrected
-    extraction) has to compose with shard_map exactly like it will on a
-    real pod slice. Interpret-mode kernels on the CPU mesh, vs oracle."""
+def test_sharded_glv_composition():
+    """shard_map x GLV: the triple-row packed table and the phi-bit
+    selection compose with shard_map exactly like on a multi-device mesh.
+    CPU mesh, vs oracle."""
     if len(jax.devices()) < 2:
         pytest.skip("needs 2 devices")
     from msm_tpu.models.geometry import MsmGeometry
-    from msm_tpu.ops.curve import set_pallas_mode
     from msm_tpu.oracle import best_msm
 
     mesh = default_mesh(jax.devices()[:2])
     geom = MsmGeometry(num_rows=256, bpr_threads=64, subtask_batch=4)
-    cfg = MsmConfig(curve=BN254, chunk_size=8, glv=True, compress=True)
+    cfg = MsmConfig(curve=BN254, chunk_size=8, glv=True)
     n = 4096
     base = [CV.to_affine(p) for p in CV.sample_points(32, seed=21)]
     pts = [base[i % len(base)] for i in range(n)]
@@ -108,11 +99,7 @@ def test_sharded_glv_compress_interpret():
         int.from_bytes(rng.bytes(32), "little") % BN254.order
         for _ in range(n)
     ]
-    set_pallas_mode("interpret")
-    try:
-        got = compute_msm_sharded(pts, ks, cfg, mesh=mesh, geometry=geom)
-    finally:
-        set_pallas_mode("auto")
+    got = compute_msm_sharded(pts, ks, cfg, mesh=mesh, geometry=geom)
     assert CV.eq(got, best_msm(pts, ks))
 
 
